@@ -1,0 +1,561 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases (any failure exits non-zero, without the final result line):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build both decode-attention kernels from ``src/repro_torch/.../csrc``
+   with nvcc for sm_90a, timed, with ptxas' register and memory report;
+3. each kernel against its plain PyTorch version on the card, at
+   qwen2-0.5b's decode shapes (B=8, Hkv=2, G=7, dh=64, Smax=1024), fp32
+   and bf16, softcap 0 and 30, edge lengths, and for the paged kernel a
+   fragmented page table with sentinels over a tight pool;
+4. qwen2-0.5b at full width (24 layers, random weights from
+   ``torch.Generator`` seed 0) served through ``repro_torch.serve.connect``
+   with a contiguous and with a paged (pages=4) cache: 16 requests, every
+   one must return its tokens, and each kernel's launch count must equal
+   layers x executed decode steps of its run; then, contiguous, 8 of the
+   prompts with budgets of 1 to 64 tokens on one ordered stream, served
+   with the engine's cut of each horizon at the last live step and
+   without it (every horizon runs K steps): the same tokens, and steps
+   launched against executed;
+5. the qwen2-0.5b smoke config at fp32 served on the card (kernels) and
+   on the CPU (plain versions): the tokens must agree;
+6. per kernel: its error against the plain version at phase 4's shapes
+   (held to the tolerance), time per call, its bound, the plain
+   version's time and ``scaled_dot_product_attention``'s (a yardstick the
+   port never calls), as one JSON line.
+
+The last line is ``{"ok": true, "device": {...}}``.  The script imports
+torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+MEM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
+FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
+FP32_TOL = 5e-5
+#: bf16 limit per case, times max|plain output|: between 2 and 4 bf16 ulps
+#: of the largest output.  Kernel and plain version both accumulate in
+#: fp32 and round once to bf16, so they differ by at most one ulp.
+BF16_REL_TOL = 4 * 2.0 ** -8
+B, HKV, G, DH, SMAX = 8, 2, 7, 64, 1024
+N_REQUESTS, MAX_NEW, N_SLOTS, HORIZON = 16, 64, 8, 8
+
+KERNELS = {
+    "ragged_decode": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "ragged_decode.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:132",
+    },
+    "paged_decode": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "paged_decode.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:227",
+    },
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ----- phase 1 ---------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+# ----- phase 2 ---------------------------------------------------------------
+
+def build_kernels():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    info = build.build()
+    log(f"built {len(info)} kernels in {time.perf_counter() - t0:.1f}s "
+        f"(nvcc {' '.join(build.ARCH_FLAGS)})")
+    for name, item in info.items():
+        log(f"  {name}: {item['seconds']:.1f}s -> {item['path']}")
+        for line in item["ptxas"].splitlines():
+            if "Compiling entry" in line or "Used" in line:
+                log(f"    {line.strip()}")
+        lib = build.load(name)
+        log(f"    dynamic shared memory per block at G={G}, dh={DH}: "
+            f"{lib.decode_smem_bytes(G, DH)} bytes")
+
+
+# ----- phase 3 ---------------------------------------------------------------
+
+def tolerance(expect) -> float:
+    """The limit on max |kernel - plain| for plain output ``expect``."""
+    import torch
+    if expect.dtype == torch.bfloat16:
+        return BF16_REL_TOL * expect.float().abs().max().item()
+    return FP32_TOL
+
+
+def _rand(gen, shape, dtype):
+    import torch
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _paged_table(gen, cur, max_pages, ps, n_pages):
+    """Each row maps just the pages its length needs, drawn scrambled from
+    one permutation of a pool smaller than B * max_pages; rows past the
+    table (retired) map nothing.  Unmapped entries hold the sentinel N."""
+    import torch
+    perm = torch.randperm(n_pages, generator=gen, device="cuda")
+    pt = torch.full((len(cur), max_pages), n_pages, dtype=torch.int32,
+                    device="cuda")
+    at = 0
+    for b, c in enumerate(cur):
+        if c >= max_pages * ps:
+            continue
+        m = c // ps + 1
+        pt[b, :m] = perm[at:at + m].int()
+        at += m
+    assert at <= n_pages
+    return pt
+
+
+def check_kernels() -> None:
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cur_list = [0, SMAX - 1, SMAX, 5000, 1, 63, 64, 700]
+    cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
+    ps = 64
+    max_pages, n_pages = SMAX // ps, 40          # tight: 40 < 8 * 16
+    pt = _paged_table(gen, cur_list, max_pages, ps, n_pages)
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for softcap in (0.0, 30.0):
+            q = _rand(gen, (B, 1, HKV * G, DH), dtype)
+            k = _rand(gen, (B, SMAX, HKV, DH), dtype)
+            v = _rand(gen, (B, SMAX, HKV, DH), dtype)
+            out = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
+            torch.cuda.synchronize()
+            expect = ref.ragged_decode_ref(q, k, v, cur, softcap=softcap)
+            err = (out.float() - expect.float()).abs().max().item()
+            tol = tolerance(expect)
+            log(f"ragged_decode {dtype} softcap={softcap}: max abs err "
+                f"{err:.3e} (tolerance {tol:.3e})")
+            if not err <= tol:
+                bad.append(("ragged_decode", dtype, softcap, err))
+            kp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
+            vp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
+            out = ops.paged_flash_decode_attention(q, kp, vp, pt, cur,
+                                                   softcap=softcap)
+            torch.cuda.synchronize()
+            expect = ref.paged_decode_ref(q, kp, vp, pt, cur,
+                                          softcap=softcap)
+            err = (out.float() - expect.float()).abs().max().item()
+            tol = tolerance(expect)
+            log(f"paged_decode  {dtype} softcap={softcap}: max abs err "
+                f"{err:.3e} (tolerance {tol:.3e}; {n_pages}-page pool, "
+                f"fragmented table with sentinels)")
+            if not err <= tol:
+                bad.append(("paged_decode", dtype, softcap, err))
+            # the same cache, contiguous and scattered over pages: both
+            # kernels walk keys in the same order, so outputs are equal
+            perm = torch.randperm(B * max_pages, generator=gen,
+                                  device="cuda")
+            pages = torch.empty((B * max_pages, ps, HKV, DH), dtype=dtype,
+                                device="cuda")
+            pages[perm] = k.reshape(B * max_pages, ps, HKV, DH)
+            vpages = torch.empty_like(pages)
+            vpages[perm] = v.reshape(B * max_pages, ps, HKV, DH)
+            table = perm.reshape(B, max_pages).int()
+            a = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
+            c = ops.paged_flash_decode_attention(q, pages, vpages, table,
+                                                 cur, softcap=softcap)
+            same = torch.equal(a, c)
+            log(f"  contiguous == paged on the same cache: {same}")
+            if not same:
+                bad.append(("paged == contiguous", dtype, softcap, None))
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{bad}")
+
+
+# ----- phase 4 ---------------------------------------------------------------
+
+def _prompts(vocab, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=int(rng.integers(64, 513)))
+            .astype(np.int32) for _ in range(N_REQUESTS)]
+
+
+def _plan(pages: bool):
+    from repro_torch.core.plan import EndpointPlan, SharingVector
+    return EndpointPlan(vector=SharingVector(pages=4 if pages else 1),
+                        n_slots=N_SLOTS, max_len=SMAX,
+                        decode_horizon=HORIZON, executor="continuous",
+                        use_ragged_kernel=True)
+
+
+def serve_once(cfg, params, prompts, pages: bool, device: str,
+               max_new=None, capped: bool = True, one_stream: bool = False):
+    """Serve ``prompts`` through ``connect``, each asking for ``max_new[i]``
+    tokens (default MAX_NEW), all at once or (``one_stream``) in order on
+    one stream, each released when its predecessor retires; -> (outputs
+    in prompt order, engine, launch counts of this run, decode seconds,
+    wall seconds).  ``capped=False`` lets every horizon run all K steps,
+    so steps after the last live slot are launched (and write nothing)
+    instead of cut by the engine."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.serve import connect
+    max_new = max_new or [MAX_NEW] * len(prompts)
+    client = connect(cfg, _plan(pages), params=params, device=device)
+    stream = client.stream() if one_stream else None
+    rids = [client.submit(p, max_new_tokens=n, stream=stream)
+            for p, n in zip(prompts, max_new)]
+    eng = client.engine
+    if not capped:
+        eng._horizon_steps = lambda: eng.decode_horizon
+    on_card = eng.device.type == "cuda"
+    decode_s = [0.0]
+    step = eng.step
+
+    def timed_step():
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        retired = step()          # ends in the horizon's host sync
+        decode_s[0] += time.perf_counter() - t
+        return retired
+
+    eng.step = timed_step
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = client.run()
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    del eng.step      # the wrappers refer back to the engine: free them now
+    eng.__dict__.pop("_horizon_steps", None)
+    return [out[r] for r in rids], eng, counts, decode_s[0], wall
+
+
+def serve_full_width(card: str):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    log(f"qwen2-0.5b: {Model(cfg, 'cpu').n_params() / 1e6:.1f}M params, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"drawn in {time.perf_counter() - t0:.1f}s")
+    prompts = _prompts(cfg.vocab)
+    runs, bad = {}, []
+    for pages in (False, True):
+        name = "paged_decode" if pages else "ragged_decode"
+        torch.cuda.reset_peak_memory_stats()
+        outs, eng, counts, dec_s, wall = serve_once(cfg, params, prompts,
+                                                    pages, "cuda")
+        steps = eng.stats["decode_steps"]
+        expect = {k: 0 for k in counts}
+        expect[name] = cfg.n_layers * steps
+        layout = "paged (pages=4, page size %d)" % eng.page_size \
+            if pages else "contiguous"
+        ok_tokens = all(len(o) == MAX_NEW and all(0 <= t < cfg.vocab
+                                                  for t in o)
+                        for o in outs)
+        tok = eng.stats["busy_slot_steps"]
+        log(f"serve {layout}: {len(outs)} requests, "
+            f"{sum(map(len, outs))} tokens, {steps} decode steps in "
+            f"{eng.stats['decode_calls']} horizons, {wall:.2f}s wall; "
+            f"launches {counts} (expected {expect})")
+        log(f"  decode {tok / dec_s:.1f} tok/s ({tok} tokens in "
+            f"{dec_s:.3f}s, batch {N_SLOTS}, horizon {HORIZON}); "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"on {card}")
+        if not ok_tokens:
+            bad.append(f"{layout}: a request came back without its "
+                       f"{MAX_NEW} tokens")
+        if counts != expect:
+            bad.append(f"{layout}: launches {counts} != {expect}")
+        runs[name] = {"outs": outs, "launches": counts[name],
+                      "tok_s": tok / dec_s}
+        del eng
+    a, c = runs["ragged_decode"]["outs"], runs["paged_decode"]["outs"]
+    same = sum(x == y for p, q in zip(a, c) for x, y in zip(p, q))
+    total = sum(len(p) for p in a)
+    log(f"contiguous vs paged: {same}/{total} tokens agree "
+        f"({same / total:.4f})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return runs, prompts, cfg, params
+
+
+def horizon_cap(cfg, params, prompts, card: str) -> None:
+    """The engine's cut of each horizon where every live slot's budget
+    runs out, against horizons that always run K steps and rely on the
+    on-device "any live" flag alone: full width, contiguous cache, one
+    user's session (one ordered stream: one request in flight, so each
+    request's last horizon runs past its end unless cut) of 8 of the
+    prompts with budgets of 1 to MAX_NEW tokens, run in the order cut,
+    uncut, uncut, cut.  Both must serve the same tokens; the cut runs
+    launch the kernel exactly layers x executed steps."""
+    import numpy as np
+    prompts = prompts[:N_SLOTS]
+    max_new = [int(n) for n in
+               np.random.default_rng(2).integers(1, MAX_NEW + 1,
+                                                 len(prompts))]
+    total = {True: [0, 0, 0.0, 0], False: [0, 0, 0.0, 0]}
+    outs, bad = {}, []
+    for capped in (True, False, False, True):
+        out, eng, counts, dec_s, _ = serve_once(
+            cfg, params, prompts, False, "cuda", max_new, capped,
+            one_stream=True)
+        executed = eng.stats["decode_steps"]
+        launched = counts["ragged_decode"] // cfg.n_layers
+        tok = eng.stats["busy_slot_steps"]
+        for i, x in enumerate((executed, launched, dec_s, tok)):
+            total[capped][i] += x
+        log(f"horizon {'cut' if capped else 'uncut'}: {executed} steps "
+            f"executed, {launched} launched, {tok} tokens in "
+            f"{dec_s:.3f}s decode ({tok / dec_s:.1f} tok/s)")
+        if outs.setdefault(capped, out) != out or any(
+                len(o) != n for o, n in zip(out, max_new)):
+            bad.append(f"{'cut' if capped else 'uncut'}: tokens")
+        if capped and counts["ragged_decode"] != cfg.n_layers * executed:
+            bad.append(f"cut: {counts['ragged_decode']} launches for "
+                       f"{executed} steps")
+        del eng
+    if outs[True] != outs[False]:
+        bad.append("cut and uncut horizons serve different tokens")
+    for capped in (True, False):
+        executed, launched, dec_s, tok = total[capped]
+        log(f"horizon {'cut' if capped else 'uncut'}, two runs: "
+            f"{launched} steps launched for {executed} executed, "
+            f"{dec_s:.3f}s decode, {tok / dec_s:.1f} tok/s; on {card}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
+# ----- phase 5 ---------------------------------------------------------------
+
+def smoke_card_vs_cpu() -> None:
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    prompts = _prompts(cfg.vocab, seed=1)
+    bad = []
+    for pages in (False, True):
+        card, eng, counts, _, _ = serve_once(cfg, params, prompts, pages,
+                                             "cuda")
+        cpu, _, cpu_counts, _, _ = serve_once(cfg, params, prompts, pages,
+                                              "cpu")
+        same = sum(x == y for p, q in zip(card, cpu) for x, y in zip(p, q))
+        total = sum(len(p) for p in cpu)
+        log(f"smoke fp32 {'paged' if pages else 'contiguous'}: card "
+            f"(kernels, launches {counts}) vs CPU (plain versions, "
+            f"launches {cpu_counts}): {same}/{total} tokens agree")
+        if card != cpu or sum(cpu_counts.values()) or \
+                not sum(counts.values()):
+            bad.append("paged" if pages else "contiguous")
+    if bad:
+        raise AssertionError(f"card and CPU tokens differ: {bad}")
+
+
+# ----- phase 6 ---------------------------------------------------------------
+
+def _time_ms(fn, n_layers, iters=10):
+    """Mean ms per call over ``iters`` sweeps of ``n_layers`` calls, each
+    on its own layer's inputs (the decode step's working set, not one
+    cache left in L2)."""
+    import torch
+    for layer in range(n_layers):
+        fn(layer)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        for layer in range(n_layers):
+            fn(layer)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * n_layers)
+
+
+def time_kernels(runs, lengths):
+    """Each kernel at phase 4's shapes: bf16, B=8 rows mid-decode (cur =
+    prompt length + MAX_NEW // 2), one cache per layer of the 24."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    n_layers = 24
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = torch.bfloat16
+    cur_list = [n + MAX_NEW // 2 for n in lengths[:B]]
+    cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
+    q = _rand(gen, (B, 1, HKV * G, DH), dt)
+    caches = [(_rand(gen, (B, SMAX, HKV, DH), dt),
+               _rand(gen, (B, SMAX, HKV, DH), dt)) for _ in range(n_layers)]
+    ps = 64
+    max_pages = SMAX // ps
+    perm = torch.randperm(B * max_pages, generator=gen, device="cuda")
+    table = perm.reshape(B, max_pages).int()
+    paged = []
+    for k, v in caches:
+        kp, vp = torch.empty_like(k), torch.empty_like(v)
+        kp.view(B * max_pages, ps, HKV, DH)[perm] = \
+            k.reshape(B * max_pages, ps, HKV, DH)
+        vp.view(B * max_pages, ps, HKV, DH)[perm] = \
+            v.reshape(B * max_pages, ps, HKV, DH)
+        paged.append((kp.view(B * max_pages, ps, HKV, DH),
+                      vp.view(B * max_pages, ps, HKV, DH)))
+    mask = (torch.arange(SMAX, device="cuda")[None, :]
+            <= cur[:, None])[:, None, None, :]
+    qs = q.transpose(1, 2)                         # (B, Hq, 1, dh)
+
+    def sdpa(k, v):
+        return F.scaled_dot_product_attention(
+            qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+
+    n_keys = sum(min(c, SMAX - 1) + 1 for c in cur_list)
+    elt = q.element_size()
+    kv_bytes = 2 * n_keys * HKV * DH * elt
+    io_bytes = 2 * q.numel() * elt + cur.numel() * 4
+    flops = 4 * n_keys * HKV * G * DH
+    out_lines = []
+    for name in ("ragged_decode", "paged_decode"):
+        if name == "ragged_decode":
+            def kern(i):
+                return ops.flash_decode_attention(q, *caches[i], cur)
+
+            def plain(i):
+                return ref.ragged_decode_ref(q, *caches[i], cur)
+            extra = 0
+        else:
+            def kern(i):
+                return ops.paged_flash_decode_attention(q, *paged[i], table,
+                                                        cur)
+
+            def plain(i):
+                return ref.paged_decode_ref(q, *paged[i], table, cur)
+            extra = table.numel() * 4
+        err, tol, bad = 0.0, float("inf"), []
+        for i in range(n_layers):
+            expect = plain(i)
+            e = (kern(i).float() - expect.float()).abs().max().item()
+            err, tol = max(err, e), min(tol, tolerance(expect))
+            if not e <= tolerance(expect):
+                bad.append((i, e, tolerance(expect)))
+        if bad:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"(layer, err, tolerance): {bad}")
+        lib_err = (sdpa(*caches[0]).transpose(1, 2).float()
+                   - plain(0).float()).abs().max().item()
+        ms = _time_ms(kern, n_layers)
+        plain_ms = _time_ms(plain, n_layers)
+        lib_ms = _time_ms(lambda i: sdpa(*caches[i]), n_layers)
+        t_bytes = (kv_bytes + io_bytes + extra) / MEM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        entry = dict(name=name, **KERNELS[name],
+                     launches=runs[name]["launches"], max_abs_err=err,
+                     ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                     bound_by="bytes" if t_bytes >= t_ops else "operations",
+                     library_ms=lib_ms)
+        out_lines.append(entry)
+        log(f"{name}: {ms * 1e3:.1f} us/call, bound {entry['bound_ms'] * 1e3:.2f} "
+            f"us ({entry['bound_by']}: {kv_bytes / 1e6:.2f} MB of K/V), "
+            f"plain {plain_ms * 1e3:.1f} us, SDPA {lib_ms * 1e3:.1f} us "
+            f"(on the contiguous cache; max abs err vs plain {lib_err:.3e}), "
+            f"max abs err {err:.3e} (tolerance {tol:.3e} or more); "
+            f"cur {cur_list}")
+    return out_lines
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failed = []
+
+    def phase(name, fn, *args):
+        log(f"--- {name}")
+        t0 = time.perf_counter()
+        try:
+            result = fn(*args)
+        except Exception:
+            traceback.print_exc()
+            log(f"--- {name}: FAILED after {time.perf_counter() - t0:.1f}s")
+            failed.append(name)
+            return None
+        log(f"--- {name}: ok in {time.perf_counter() - t0:.1f}s")
+        return result
+
+    card = phase("card", card_line)
+    if card is None:
+        return 1
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    phase("build", build_kernels)
+    if failed:
+        log(f"FAILED phases: {failed}")
+        return 1
+    phase("kernels vs plain versions", check_kernels)
+    served = phase("serve qwen2-0.5b at full width", serve_full_width, card)
+    if served is not None:
+        phase("horizon cut vs uncut", horizon_cap, *served[2:], served[1],
+              card)
+    phase("smoke config at fp32: card vs CPU", smoke_card_vs_cpu)
+    kernels = None
+    if served is not None:
+        runs, prompts = served[:2]
+        kernels = phase("kernel timing", time_kernels, runs,
+                        [len(p) for p in prompts])
+    if failed or kernels is None:
+        log(f"FAILED phases: {failed}")
+        return 1
+    log(f"decode tok/s: contiguous "
+        f"{served[0]['ragged_decode']['tok_s']:.1f}, paged "
+        f"{served[0]['paged_decode']['tok_s']:.1f}; on {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

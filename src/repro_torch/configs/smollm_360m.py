@@ -1,0 +1,22 @@
+"""SmolLM-360M [hf:HuggingFaceTB/SmolLM; llama-arch small].
+
+32L d_model=960 15H (GQA kv=5) d_ff=2560 vocab=49152.
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-360m", family="dense",
+    n_layers=32, d_model=960, n_heads=15, n_kv_heads=5, d_ff=2560,
+    vocab=49152, d_head=64,
+    block_pattern=("attn",), norm="rmsnorm", act="swiglu",
+    pos="rope", rope_theta=1e4, tie_embeddings=True,
+)
+
+SMOKE = ArchConfig(
+    name="smollm-360m-smoke", family="dense",
+    n_layers=2, d_model=60, n_heads=3, n_kv_heads=1, d_ff=128,
+    vocab=128, d_head=20,
+    block_pattern=("attn",), norm="rmsnorm", act="swiglu",
+    pos="rope", tie_embeddings=True,
+)

@@ -1,0 +1,2 @@
+"""Decode attention: CUDA kernels (``csrc/``), wrappers (``ops``) and
+their plain PyTorch versions (``ref``)."""

@@ -1,0 +1,127 @@
+"""Decode-attention kernel wrappers: (B, S, H, dh) native cache layouts.
+
+``flash_decode_attention`` and ``paged_flash_decode_attention`` keep the
+reference's names and signatures (``repro.kernels.flash_attention.ops``).
+For a CUDA tensor each builds (at first use) and launches its hand-written
+CUDA kernel on the current stream, or raises: there is no fallback.  For
+a CPU tensor each runs its plain PyTorch version (``ref.py``).  Each
+wrapper counts its kernel launches in ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import (paged_decode_ref,
+                                                     ragged_decode_ref)
+
+#: kernel launches since the last ``reset_launch_counts()``; plain-version
+#: calls on CPU tensors do not count
+LAUNCHES = {"ragged_decode": 0, "paged_decode": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_G_DH = 4096      # g * dh floats per block in shared memory (x2)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_common(q, k, v, cur_index, name):
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: tensors on {q.device} have no kernel; "
+                           f"the plain version serves only CPU tensors")
+    for t, what in ((k, "k"), (v, "v"), (cur_index, "cur_index")):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {what} on {t.device}, q on "
+                             f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported "
+                        f"(float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v dtypes differ ({q.dtype}, "
+                        f"{k.dtype}, {v.dtype})")
+    if q.dim() != 4 or q.shape[1] != 1 or not q.is_contiguous():
+        raise ValueError(f"{name}: q must be a contiguous (B, 1, Hq, dh) "
+                         f"tensor, got {tuple(q.shape)}")
+    if k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: k/v shapes {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    if k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{name}: k/v head_dim must be contiguous")
+    b, _, hq, dh = q.shape
+    hkv = k.shape[2]
+    if k.shape[3] != dh or hq % hkv:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
+    if (hq // hkv) * dh > _MAX_G_DH:
+        raise ValueError(f"{name}: G*dh = {(hq // hkv) * dh} exceeds "
+                         f"{_MAX_G_DH}")
+    if cur_index.shape != (b,) or cur_index.dtype != torch.int32 \
+            or not cur_index.is_contiguous():
+        raise ValueError(f"{name}: cur_index must be a contiguous ({b},) "
+                         f"int32 tensor")
+    return b, hq // hkv, hkv, dh
+
+
+def flash_decode_attention(q, k_cache, v_cache, cur_index, *,
+                           softcap: float = 0.0):
+    """Ragged-length decode attention over a contiguous per-slot cache.
+
+    q: (B, 1, Hq, dh); k_cache/v_cache: (B, Smax, Hkv, dh); cur_index:
+    (B,) int32 — row b attends to positions [0, cur_index[b]].
+    -> (B, 1, Hq, dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return ragged_decode_ref(q, k_cache, v_cache, cur_index,
+                                 softcap=softcap)
+    b, g, hkv, dh = _check_common(q, k_cache, v_cache, cur_index,
+                                  "ragged_decode")
+    lib = build.load("ragged_decode")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):       # the launch uses the current device
+        code = lib.ragged_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            cur_index.data_ptr(), out.data_ptr(), b, hkv, g, dh,
+            k_cache.shape[1], k_cache.stride(0), k_cache.stride(1),
+            k_cache.stride(2), v_cache.stride(0), v_cache.stride(1),
+            v_cache.stride(2), dh ** -0.5, float(softcap), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, "ragged_decode", code)
+    LAUNCHES["ragged_decode"] += 1
+    return out
+
+
+def paged_flash_decode_attention(q, k_pages, v_pages, page_table,
+                                 cur_index, *, softcap: float = 0.0):
+    """Page-table decode attention over a paged KV cache.
+
+    q: (B, 1, Hq, dh); k_pages/v_pages: (N, page_size, Hkv, dh) physical
+    pages; page_table: (B, max_pages) int32 — logical page j of row b is
+    physical page ``page_table[b, j]`` (sentinel N = unmapped, clipped to
+    N-1); cur_index: (B,) int32.  -> (B, 1, Hq, dh)."""
+    if q.device.type == "cpu":
+        return paged_decode_ref(q, k_pages, v_pages, page_table, cur_index,
+                                softcap=softcap)
+    b, g, hkv, dh = _check_common(q, k_pages, v_pages, cur_index,
+                                  "paged_decode")
+    if page_table.device != q.device or page_table.dtype != torch.int32 \
+            or page_table.dim() != 2 or page_table.shape[0] != b \
+            or not page_table.is_contiguous():
+        raise ValueError("paged_decode: page_table must be a contiguous "
+                         f"({b}, max_pages) int32 tensor on {q.device}")
+    lib = build.load("paged_decode")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):       # the launch uses the current device
+        code = lib.paged_decode(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), cur_index.data_ptr(), out.data_ptr(), b,
+            hkv, g, dh, k_pages.shape[1], k_pages.shape[0],
+            page_table.shape[1], k_pages.stride(0), k_pages.stride(1),
+            k_pages.stride(2), v_pages.stride(0), v_pages.stride(1),
+            v_pages.stride(2), dh ** -0.5, float(softcap), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, "paged_decode", code)
+    LAUNCHES["paged_decode"] += 1
+    return out

@@ -1,0 +1,250 @@
+"""Model: config -> params / prefill / decode_step / decode_horizon.
+
+The serving half of ``repro.models.model`` for dense attention decoders,
+in eager PyTorch on an explicit device.  Parameters are the same tree as
+the reference's (``param_specs``); ``prepare_params`` places them on the
+device in the compute dtype once, where the reference cast every weight
+on every call (the values are identical).
+
+Caches are dicts of tensors updated in place (see ``transformer``); the
+``idx`` entry is replaced by a new tensor on every call, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import params as P
+from repro_torch.models.attention import select_attention
+from repro_torch.models.layers import (apply_norm, compute_dtype,
+                                       embed_specs, embed_tokens,
+                                       head_matrix, norm_specs)
+from repro_torch.models.transformer import (ATTN_KINDS, BlockCtx,
+                                            apply_stack, check_slice,
+                                            init_stack_cache, make_plan,
+                                            stack_specs_tree)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Raises RuntimeError when CUDA is asked
+    for and absent: the port never carries on on the CPU unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the card unless the "
+            "caller passes device='cpu'")
+    return device
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plan = make_plan(cfg, cross=cfg.is_encdec)
+        check_slice(cfg, self.plan)
+        self.dtype = compute_dtype(cfg)
+
+    # ----- parameters ----------------------------------------------------
+    def param_specs(self):
+        cfg = self.cfg
+        return {"decoder": stack_specs_tree(cfg, self.plan),
+                "final_norm": norm_specs(cfg),
+                "embed": embed_specs(cfg)}
+
+    def init(self, generator: torch.Generator):
+        """Fresh weights drawn from ``generator`` (the reference's init
+        distributions, torch's random stream), fp32 on this device."""
+        return P.materialize(self.param_specs(), generator, self.device)
+
+    def n_params(self) -> int:
+        return P.n_params(self.param_specs())
+
+    def prepare_params(self, params):
+        """One compute-dtype copy of every weight on this device."""
+        return P.tree_map(lambda a: a.to(self.device, self.dtype), params,
+                          torch.is_tensor)
+
+    # ----- forward -------------------------------------------------------
+    def _positions(self, b, s, offset=0):
+        pos = offset + torch.arange(s, dtype=torch.int32,
+                                    device=self.device)[None, :]
+        pos = pos.expand(b, s)
+        if self.cfg.pos == "mrope":
+            return pos[..., None].expand(b, s, 3)
+        return pos
+
+    def forward(self, params, batch, *, mode="prefill", cache=None,
+                skip_future=False, use_ragged_kernel=False,
+                decode_write_mask=None, idx_step=1):
+        """-> (hidden (B,S,d), new_cache).  ``idx_step`` is how far a
+        decode step advances ``idx`` (the fused horizon passes 0 for steps
+        the reference's early-exiting loop would not run)."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        b, s = x.shape[:2]
+        pos = batch.get("positions")
+        if pos is None:
+            pos = self._positions(b, s)
+        cache = cache or {}
+        ctx = BlockCtx(
+            cfg=cfg, mode=mode, positions=pos,
+            attn_fn=select_attention(
+                cfg, s, skip_future=skip_future and mode == "prefill"),
+            decode_idx=cache.get("idx"),
+            ragged_kernel=use_ragged_kernel and mode == "decode",
+            decode_write_mask=(decode_write_mask if mode == "decode"
+                               else None),
+            page_table=cache.get("pt") if mode == "decode" else None)
+        h = apply_stack(params["decoder"], x, cfg, self.plan, ctx,
+                        cache=cache.get("stack"))
+        h = apply_norm(params["final_norm"], h, cfg.norm)
+        new_cache = None
+        if cache:
+            step = idx_step if mode == "decode" else s
+            new_cache = dict(cache, idx=cache["idx"] + step)
+        return h, new_cache
+
+    # ----- serving -------------------------------------------------------
+    @property
+    def supports_padded_prefill(self) -> bool:
+        """Trailing-pad bucketed prefill is exact: every block is causal
+        attention and no rolling-window cache."""
+        cfg = self.cfg
+        descs = tuple(self.plan.prefix) + tuple(self.plan.period)
+        return (all(d.kind in ATTN_KINDS for d in descs)
+                and not (cfg.attn_window > 0 and cfg.sub_quadratic))
+
+    @property
+    def supports_paged_cache(self) -> bool:
+        """The paged KV layout is exact: every block full-context
+        attention, decoder-only."""
+        cfg = self.cfg
+        descs = tuple(self.plan.prefix) + tuple(self.plan.period)
+        return (all(d.kind in ATTN_KINDS for d in descs)
+                and cfg.attn_window == 0 and not cfg.is_encdec)
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   per_slot: bool = False, page_size: int = 0,
+                   n_pages: int = 0):
+        """``per_slot`` makes ``idx`` a (B,) vector (continuous batching).
+        ``page_size > 0`` builds the paged cache with a sentinel-filled
+        page table ``pt`` of shape ``(B, max_len // page_size)``."""
+        if page_size > 0:
+            if not self.supports_paged_cache:
+                raise ValueError(f"{self.cfg.name}: arch does not support "
+                                 f"the paged KV cache")
+            if max_len % page_size or n_pages <= 0:
+                raise ValueError(f"paged cache needs page_size | max_len "
+                                 f"and n_pages > 0 ({max_len}, "
+                                 f"{page_size}, {n_pages})")
+        stack = init_stack_cache(self.cfg, self.plan, batch_size, max_len,
+                                 page_size=page_size, n_pages=n_pages,
+                                 device=self.device)
+        idx = torch.zeros((batch_size,) if per_slot else (),
+                          dtype=torch.int32, device=self.device)
+        cache = {"stack": stack, "idx": idx}
+        if page_size > 0:
+            cache["pt"] = torch.full((batch_size, max_len // page_size),
+                                     n_pages, dtype=torch.int32,
+                                     device=self.device)
+        return cache
+
+    def _logits(self, params, h):
+        head = head_matrix(params["embed"], self.cfg)
+        return (h @ head.to(h.dtype)).float()
+
+    def prefill(self, params, batch, cache, skip_future: bool = True,
+                last_index=None):
+        """Run the prompt, fill the cache; -> (last_logits, cache).
+        ``last_index`` ((B,) int) gathers each row's logits at its own
+        last real token (bucketed prefill pads prompts at the end)."""
+        h, new_cache = self.forward(params, batch, mode="prefill",
+                                    cache=cache, skip_future=skip_future)
+        if last_index is None:
+            last = h[:, -1, :]
+        else:
+            rows = torch.arange(h.shape[0], device=h.device)
+            last = h[rows, last_index.long()]
+        return self._logits(params, last), new_cache
+
+    def decode_step(self, params, cache, tokens, use_ragged_kernel=False,
+                    write_mask=None, idx_step=1):
+        """One decode step.  tokens: (B,) int.  -> (logits (B,V) fp32,
+        new_cache).  With a per-slot cache each row decodes at its own
+        position.  ``write_mask`` ((B,) bool) gates the cache writes per
+        row.  On a CUDA device attention runs the CUDA kernels whatever
+        ``use_ragged_kernel`` says; on the CPU it picks the kernels' plain
+        versions (True) or ``attention_decode`` (False)."""
+        cfg = self.cfg
+        idx = cache["idx"]
+        b = tokens.shape[0]
+        if idx.dim() == 1:
+            pos = idx[:, None].int()
+        else:
+            pos = idx.reshape(1, 1).expand(b, 1).int()
+        if cfg.pos == "mrope":
+            pos = pos[..., None].expand(b, 1, 3)
+        h, new_cache = self.forward(
+            params, {"tokens": tokens[:, None], "positions": pos},
+            mode="decode", cache=cache, use_ragged_kernel=use_ragged_kernel,
+            decode_write_mask=write_mask, idx_step=idx_step)
+        return self._logits(params, h[:, 0, :]), new_cache
+
+    def decode_horizon(self, params, cache, state, *, horizon: int,
+                       max_len: int, use_ragged_kernel=False,
+                       n_steps: Optional[int] = None):
+        """Up to ``horizon`` fused greedy decode steps with no host sync.
+
+        ``state`` (all (B,)): ``tok`` next token to feed, ``remaining``
+        budget, ``finished``, ``eos`` / ``has_eos``.  -> (cache, state,
+        trace), every trace leaf (horizon, B): ``tok`` emitted, ``live``,
+        ``bonus_tok`` / ``bonus`` (cache-edge lookahead token),
+        ``retired``.
+
+        The reference's ``while_loop`` stops once every slot has finished.
+        Checking that on the host would cost one sync per token, so each
+        step here computes an on-device "any live" flag instead: a step
+        taken after the last slot finished writes nothing (every row's
+        write mask is off), leaves ``idx`` and the state as they were, and
+        leaves its trace row all-dead, exactly like a step the reference
+        never ran.  ``n_steps`` (<= horizon) lets the caller stop earlier
+        when it knows the budgets run out; rows past it stay all-dead."""
+        eos, has_eos = state["eos"], state["has_eos"]
+        tok, remaining = state["tok"], state["remaining"]
+        finished = state["finished"]
+        b = tok.shape[0]
+        dev = tok.device
+        trace = {name: torch.zeros((horizon, b), dtype=dt, device=dev)
+                 for name, dt in (("tok", torch.int32), ("live", torch.bool),
+                                  ("bonus_tok", torch.int32),
+                                  ("bonus", torch.bool),
+                                  ("retired", torch.bool))}
+        steps = horizon if n_steps is None else min(horizon, n_steps)
+        for s in range(steps):
+            active = ~finished.all()
+            live = ~finished
+            logits, cache = self.decode_step(
+                params, cache, tokens=tok, write_mask=live,
+                use_ragged_kernel=use_ragged_kernel,
+                idx_step=active.to(torch.int32))
+            nxt = logits.argmax(-1).to(torch.int32)
+            rem = torch.where(live, remaining - 1, remaining)
+            fin_new = live & ((rem <= 0) | (has_eos & (nxt == eos)))
+            # a live slot that would overrun the cache emits its
+            # lookahead token and retires
+            bonus = live & ~fin_new & (cache["idx"] >= max_len - 1)
+            finished = finished | fin_new | bonus
+            out = {"tok": tok, "live": live, "bonus_tok": nxt,
+                   "bonus": bonus, "retired": live & finished}
+            for name, val in out.items():
+                trace[name][s] = torch.where(active, val,
+                                             torch.zeros_like(val))
+            tok = torch.where(live, nxt, tok)
+            remaining = rem
+        new_state = dict(state, tok=tok, remaining=remaining,
+                         finished=finished)
+        return cache, new_state, trace

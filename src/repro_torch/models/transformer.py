@@ -1,0 +1,311 @@
+"""Block stack, dense path: layer planning, attention blocks, KV caches.
+
+``LayerPlan`` splits the per-layer block descriptors into an unrolled
+prefix and a periodic body exactly as ``repro.models.transformer`` does,
+so parameter and cache trees have the same layout (body leaves stacked on
+a leading ``layers`` axis).  Eager PyTorch has no scan to trace: the body
+is a Python loop over that axis, and each layer works on views of the
+stacked tensors.
+
+KV caches are updated IN PLACE (the reference rebuilt them functionally):
+the prefill writes the prompt rows, and a decode step writes exactly one
+row per batch row, through views, so the stacked cache itself changes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import (
+    flash_decode_attention, paged_flash_decode_attention)
+from repro_torch.models.attention import (attention_decode,
+                                          attention_decode_paged,
+                                          attn_specs, project_kv,
+                                          project_out, project_q)
+from repro_torch.models.layers import (apply_ffn, apply_norm, apply_rope,
+                                       compute_dtype, ffn_specs, norm_specs)
+from repro_torch.models.params import stack_specs, tree_map
+
+ATTN_KINDS = ("attn", "attn_local")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDesc:
+    kind: str                 # attn | attn_local | rglru | mlstm | slstm
+    ffn: str                  # dense | dense0 | moe | none
+    cross: bool = False       # decoder cross-attention (enc-dec)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    prefix: tuple             # LayerDescs unrolled before the periodic body
+    period: tuple             # LayerDescs of one period
+    n_periods: int
+
+    @property
+    def n_layers(self):
+        return len(self.prefix) + len(self.period) * self.n_periods
+
+
+def _descriptors(cfg: ArchConfig, n_layers: int, cross: bool) -> list:
+    pattern = cfg.pattern_for(n_layers)
+    descs = []
+    for i, kind in enumerate(pattern):
+        if kind in ("mlstm", "slstm"):
+            ffn = "none"
+        elif cfg.moe is not None:
+            ffn = "moe" if i >= cfg.moe.first_moe_layer else "dense0"
+        else:
+            ffn = "dense"
+        descs.append(LayerDesc(kind=kind, ffn=ffn, cross=cross))
+    return descs
+
+
+def make_plan(cfg: ArchConfig, n_layers: Optional[int] = None,
+              cross: bool = False) -> LayerPlan:
+    """The (prefix, period) split with the fewest distinct layers."""
+    descs = _descriptors(cfg, n_layers or cfg.n_layers, cross)
+    best = None
+    for prefix_len in range(len(descs)):
+        rest = descs[prefix_len:]
+        if not rest:
+            break
+        for p in range(1, len(rest) + 1):
+            if len(rest) % p:
+                continue
+            if all(rest[i] == rest[i % p] for i in range(len(rest))):
+                cand = LayerPlan(prefix=tuple(descs[:prefix_len]),
+                                 period=tuple(rest[:p]),
+                                 n_periods=len(rest) // p)
+                cost = prefix_len + p
+                if best is None or cost < best[0]:
+                    best = (cost, cand)
+                break
+    assert best is not None
+    return best[1]
+
+
+# --------------------------------------------------------------------------
+# Per-block specs / apply
+# --------------------------------------------------------------------------
+
+_LATER_SLICE = {
+    "rglru": "the recurrentgemma slice (RG-LRU blocks)",
+    "mlstm": "the xLSTM slice (mLSTM / sLSTM blocks)",
+    "slstm": "the xLSTM slice (mLSTM / sLSTM blocks)",
+}
+
+
+def check_slice(cfg: ArchConfig, plan: LayerPlan) -> None:
+    """Raise NotImplementedError for what this slice does not serve."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: embeddings input arrives with the qwen2-vl slice")
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models arrive with the "
+            f"seamless (enc-dec) slice")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE FFNs arrive with the granite/deepseek MoE "
+            f"slice")
+    for d in plan.prefix + plan.period:
+        if d.kind in _LATER_SLICE:
+            raise NotImplementedError(
+                f"{cfg.name}: {d.kind} blocks arrive with "
+                f"{_LATER_SLICE[d.kind]}")
+        if d.kind == "attn_local" and cfg.attn_window > 0:
+            raise NotImplementedError(
+                f"{cfg.name}: sliding-window attention (rolling caches) "
+                f"arrives with the recurrentgemma slice")
+
+
+def block_specs(cfg: ArchConfig, desc: LayerDesc):
+    """An attention block with a dense FFN (``check_slice`` has refused
+    every other kind)."""
+    return {"norm1": norm_specs(cfg), "attn": attn_specs(cfg),
+            "norm2": norm_specs(cfg), "ffn": ffn_specs(cfg)}
+
+
+@dataclasses.dataclass
+class BlockCtx:
+    """Context threaded through every block of one forward call."""
+    cfg: ArchConfig
+    mode: str                         # train | prefill | decode
+    positions: Any                    # (B,S) or (B,S,3)
+    attn_fn: Any
+    causal: bool = True
+    decode_idx: Any = None            # (B,) or scalar int32 cache index
+    ragged_kernel: bool = False       # CPU: decode via the kernels' plain
+    #                                   versions (CUDA always uses kernels)
+    decode_write_mask: Any = None     # (B,) bool: rows allowed to write
+    page_table: Any = None            # (B, max_pages) int32; None =
+    #                                   contiguous cache
+
+
+def _attn_cache_write(cache, k_new, v_new, idx, write_mask=None):
+    """Write one decode step's k/v into a contiguous cache, in place.
+
+    The reference rebuilt the whole cache with ``jnp.where`` every step;
+    here only row ``[b, idx[b]]`` is written.  Rows whose index ran past
+    the buffer (retired slots) or whose ``write_mask`` is off write their
+    own current value back, so nothing changes for them and the step needs
+    no host sync to find them."""
+    smax = cache["k"].shape[1]
+    if idx.dim() == 0:
+        # one shared position: the reference's dynamic_update_slice clamps
+        pos = idx.clamp(0, smax - 1).long().reshape(1)
+        cache["k"].index_copy_(1, pos, k_new)
+        cache["v"].index_copy_(1, pos, v_new)
+        return
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    ok = (idx >= 0) & (idx < smax)
+    if write_mask is not None:
+        ok &= write_mask
+    pos = idx.clamp(0, smax - 1).long()
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = cache[name]
+        buf[rows, pos] = torch.where(ok[:, None, None], new[:, 0],
+                                     buf[rows, pos])
+
+
+def _attn_cache_write_paged(cache, k_new, v_new, idx, page_table,
+                            write_mask=None):
+    """Write one decode step's k/v into a PAGED cache, in place.
+
+    Row b lands at flat row ``pt[b, idx[b]//ps] * ps + idx[b] % ps`` of
+    the (N*ps, Hkv, dh) pool.  The reference sent rows that must not
+    write (past max_len, write_mask off, sentinel page) out of bounds and
+    let ``mode="drop"`` discard them; torch has no drop mode, so each such
+    row instead repeats the target and value of one fixed row (the first
+    row that writes, else row 0, which then writes back its own current
+    value).  Duplicate indices then carry identical values, and live rows
+    never alias (they own disjoint pages), so the result is deterministic
+    and needs no host sync."""
+    n, ps = cache["k"].shape[0], cache["k"].shape[1]
+    max_pages = page_table.shape[1]
+    logical = (idx // ps).clamp(0, max_pages - 1).long()
+    phys = page_table.gather(1, logical[:, None])[:, 0]
+    ok = (idx >= 0) & (idx < max_pages * ps) & (phys >= 0) & (phys < n)
+    if write_mask is not None:
+        ok &= write_mask
+    flat = phys.clamp(0, n - 1).long() * ps + (idx % ps).long()
+    r0 = ok.int().argmax().reshape(1)   # 1-d: a 0-d index would sync
+    tgt = torch.where(ok, flat, flat[r0])
+    for name, new in (("k", k_new), ("v", v_new)):
+        buf = cache[name].view((n * ps,) + tuple(cache[name].shape[2:]))
+        val = torch.where(ok[:, None, None], new[:, 0], buf[flat])
+        buf[tgt] = torch.where(ok[:, None, None], val, val[r0])
+
+
+def _self_attention(p, h, ctx: BlockCtx, cache):
+    cfg = ctx.cfg
+    q = project_q(p, h, cfg)
+    k, v = project_kv(p, h, cfg)
+    if cfg.pos != "none":
+        q = apply_rope(q, ctx.positions, cfg)
+        k = apply_rope(k, ctx.positions, cfg)
+    on_card = h.device.type == "cuda"
+
+    if ctx.mode == "decode" and ctx.page_table is not None:
+        _attn_cache_write_paged(cache, k, v, ctx.decode_idx, ctx.page_table,
+                                write_mask=ctx.decode_write_mask)
+        idx = ctx.decode_idx
+        if on_card or ctx.ragged_kernel:
+            out = paged_flash_decode_attention(
+                q, cache["k"], cache["v"], ctx.page_table, idx.int(),
+                softcap=cfg.attn_logit_softcap)
+        else:
+            ps = cache["k"].shape[1]
+            out = attention_decode_paged(
+                q, cache["k"], cache["v"], ctx.page_table, idx,
+                page_size=ps, max_len=ctx.page_table.shape[1] * ps,
+                softcap=cfg.attn_logit_softcap)
+    elif ctx.mode == "decode":
+        idx = ctx.decode_idx
+        _attn_cache_write(cache, k, v, idx,
+                          write_mask=ctx.decode_write_mask)
+        if on_card or (ctx.ragged_kernel and idx.dim() == 1):
+            cur = idx.int().expand(q.shape[0]).contiguous()
+            out = flash_decode_attention(q, cache["k"], cache["v"], cur,
+                                         softcap=cfg.attn_logit_softcap)
+        else:
+            out = attention_decode(q, cache["k"], cache["v"], idx,
+                                   softcap=cfg.attn_logit_softcap)
+    else:
+        out = ctx.attn_fn(q, k, v, causal=ctx.causal, window=0,
+                          softcap=cfg.attn_logit_softcap)
+        if ctx.mode == "prefill" and cache is not None:
+            # in place: the prompt rows of the (possibly longer) buffer
+            s = k.shape[1]
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+    return project_out(p, out, h.dtype)
+
+
+def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
+    """One attention block with a dense FFN; -> x.  ``cache`` (the
+    block's ``{"attn": {"k", "v"}}``) is updated in place."""
+    cfg = ctx.cfg
+    h = apply_norm(p["norm1"], x, cfg.norm)
+    x = x + _self_attention(p["attn"], h, ctx,
+                            cache["attn"] if cache is not None else None)
+    h2 = apply_norm(p["norm2"], x, cfg.norm)
+    return x + apply_ffn(p["ffn"], h2, cfg.act)
+
+
+# --------------------------------------------------------------------------
+# Stack: prefix (unrolled) + body (a loop over the stacked layers axis)
+# --------------------------------------------------------------------------
+
+def stack_specs_tree(cfg: ArchConfig, plan: LayerPlan):
+    prefix = [block_specs(cfg, d) for d in plan.prefix]
+    period = [block_specs(cfg, d) for d in plan.period]
+    body = [stack_specs(s, plan.n_periods) for s in period]
+    return {"prefix": prefix, "body": body}
+
+
+def init_stack_cache(cfg: ArchConfig, plan: LayerPlan, batch: int,
+                     max_len: int, page_size: int = 0, n_pages: int = 0,
+                     device=None):
+    """Zeroed cache for the whole stack.  ``page_size > 0`` selects the
+    paged layout: each attention layer's k/v become
+    ``(n_pages, page_size, Hkv, dh)`` physical pages with no batch axis."""
+    dt = compute_dtype(cfg)
+    if page_size > 0:
+        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    else:
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+
+    def one(lead=()):
+        return {"attn": {
+            "k": torch.zeros(lead + shape, dtype=dt, device=device),
+            "v": torch.zeros(lead + shape, dtype=dt, device=device)}}
+
+    return {"prefix": [one() for _ in plan.prefix],
+            "body": [one((plan.n_periods,)) for _ in plan.period]}
+
+
+def _layer(tree, i: int):
+    """Views of layer ``i`` of a stacked body tree."""
+    return tree_map(lambda a: a[i], tree, torch.is_tensor)
+
+
+def apply_stack(params, x, cfg: ArchConfig, plan: LayerPlan, ctx: BlockCtx,
+                cache=None):
+    """-> x.  The cache (same tree as ``init_stack_cache``) is updated in
+    place."""
+    for i, desc in enumerate(plan.prefix):
+        c = cache["prefix"][i] if cache is not None else None
+        x = apply_block(params["prefix"][i], x, desc, ctx, c)
+    for layer in range(plan.n_periods):
+        for pos, desc in enumerate(plan.period):
+            c = (_layer(cache["body"][pos], layer) if cache is not None
+                 else None)
+            x = apply_block(_layer(params["body"][pos], layer), x, desc,
+                            ctx, c)
+    return x

@@ -1,0 +1,532 @@
+"""Continuous batching over an endpoint-style slot pool, in PyTorch.
+
+The port of ``repro.serve.engine.ContinuousEngine`` (DESIGN.md §6.2):
+one persistent ``n_slots``-row KV cache holds every active request at its
+own ragged length, a finished request frees its slot at once, and a
+``SlotPool`` keyed by the plan's ``slots`` sharing level decides when a
+queued request may take it.  The two host-batching layers are kept:
+
+* **Fused decode horizon** (``decode_horizon=K``): K greedy decode steps
+  run on the device per host sync (``Model.decode_horizon``) and the
+  whole token trace drains in one transfer.  ``K=1`` is the per-step host
+  loop, the oracle.
+* **Bucketed batched prefill** (``prefill_buckets``): a round's
+  admissions pad to a shared power-of-2 length and prefill as one batched
+  call, then land in their slots with one scatter.
+
+Eager PyTorch compiles nothing, so the reference's shared jitted
+executables (``SharedSteps``) have no counterpart: the engine calls its
+``Model`` directly.  Cache scatters write in place, indexed by the slot
+assignment the host already knows.  The wave ``ServeEngine``, regroup,
+evacuation, KV handoff and session export come with a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.plan import Buckets, EndpointPlan
+from repro_torch.models.model import Model
+from repro_torch.models.params import tree_leaves
+from repro_torch.serve.pages import PagePool, sentinel
+from repro_torch.serve.slots import SlotPool
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (len,) int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    output: Optional[list] = None      # filled by the engine
+
+
+def _leaf_pairs(full_stack, part_stack):
+    """(dst, src, batch axis) for every cache leaf: prefix leaves carry
+    the batch (or page) axis first, stacked body leaves second."""
+    for group, axis in (("prefix", 0), ("body", 1)):
+        for dst, src in zip(tree_leaves(full_stack[group]),
+                            tree_leaves(part_stack[group])):
+            yield dst, src, axis
+
+
+def _scatter_slots(full, many, slots: Sequence[int],
+                   lengths: Sequence[int]):
+    """Row ``i`` of the batched prefill cache ``many`` lands in slot
+    ``slots[i]`` of ``full``, in place (the reference rebuilt every leaf
+    with ``jnp.where``), and that slot's position pins to
+    ``lengths[i]``."""
+    dev = full["idx"].device
+    n = len(slots)
+    s_idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    for dst, src, axis in _leaf_pairs(full["stack"], many["stack"]):
+        if axis == 0:
+            dst[s_idx] = src[:n]
+        else:
+            dst[:, s_idx] = src[:, :n]
+    full["idx"][s_idx] = torch.as_tensor(lengths, dtype=torch.int32,
+                                         device=dev)
+
+
+def _scatter_slots_paged(full, many, slots: Sequence[int],
+                         lengths: Sequence[int], pt: np.ndarray,
+                         n_pages: int):
+    """Paged variant of ``_scatter_slots``: row ``i`` of the contiguous
+    prefill cache splits into pages and lands, in place, in the physical
+    pages slot ``slots[i]`` maps in the host page table ``pt`` (pool of
+    ``n_pages``).  The reference dropped sentinel entries with
+    ``mode="drop"``; here the host leaves them out of the index lists.
+    The admitted slots' table rows install in the device table."""
+    dev = full["idx"].device
+    max_pages = pt.shape[1]
+    src_row, src_page, dst_page = [], [], []
+    for row, slot in enumerate(slots):
+        for j, page in enumerate(pt[slot]):
+            if page < n_pages:
+                src_row.append(row)
+                src_page.append(j)
+                dst_page.append(int(page))
+    sr = torch.as_tensor(src_row, dtype=torch.long, device=dev)
+    sp = torch.as_tensor(src_page, dtype=torch.long, device=dev)
+    dp = torch.as_tensor(dst_page, dtype=torch.long, device=dev)
+    for dst, src, axis in _leaf_pairs(full["stack"], many["stack"]):
+        ps = dst.shape[axis + 1]
+        shape = list(src.shape)
+        shape[axis + 1:axis + 2] = [max_pages, ps]
+        pages = src.reshape(shape)
+        if axis == 0:
+            dst[dp] = pages[sr, sp]
+        else:
+            dst[:, dp] = pages[:, sr, sp]
+    s_idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
+    full["idx"][s_idx] = torch.as_tensor(lengths, dtype=torch.int32,
+                                         device=dev)
+    full["pt"][s_idx] = torch.as_tensor(pt[list(slots)], device=dev)
+
+
+def auto_page_size(max_len: int, target: int = 0) -> int:
+    """The largest divisor of ``max_len`` not exceeding ``target`` (auto
+    target = ``max_len // 4`` clamped to [8, 64])."""
+    if target <= 0:
+        target = max(8, min(64, max_len // 4))
+    for ps in range(min(target, max_len), 0, -1):
+        if max_len % ps == 0:
+            return ps
+    return max_len
+
+
+def pow2_buckets(max_len: int, lo: int = 8) -> Tuple[int, ...]:
+    """Power-of-2 prompt-length buckets covering [1, max_len)."""
+    out, b = [], lo
+    while b < max_len:
+        out.append(b)
+        b *= 2
+    out.append(max_len)
+    return tuple(out)
+
+
+class ContinuousEngine:
+    """Continuous batching over an endpoint-style slot pool (see the
+    module docstring), configured wholly by its ``EndpointPlan``: slots,
+    max_len, horizon, buckets, the slot and page sharing levels.  Outputs
+    are identical across every (decode_horizon, prefill_buckets) setting
+    on eligible models."""
+
+    def __init__(self, cfg: ArchConfig, params, plan: EndpointPlan,
+                 device=None):
+        n_slots, max_len = plan.n_slots, plan.max_len
+        self.cfg = cfg
+        self.model = Model(cfg, device)
+        self.device = self.model.device
+        self.params = self.model.prepare_params(params)
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.pool = SlotPool(plan.vector.slots, n_slots)
+        self.plan = plan
+        self.decode_horizon = plan.decode_horizon
+        self.queue: deque = deque()
+        self.done: List[Request] = []
+        self.latency: Dict[int, float] = {}      # rid -> s from run() start
+        # deterministic schedule keys: the engine's token-step counter at
+        # admission / retirement, and the order requests took slots
+        self.admit_steps: Dict[int, int] = {}
+        self.retire_steps: Dict[int, int] = {}
+        self.admit_order: List[int] = []
+        self.stats = {"decode_steps": 0, "decode_calls": 0,
+                      "slot_steps": 0, "busy_slot_steps": 0,
+                      "prefills": 0, "prefilled_requests": 0,
+                      "host_syncs": 0}
+        self.use_ragged_kernel = plan.use_ragged_kernel
+        # ----- paged KV cache (plan-gated; DESIGN.md §13) ----------------
+        self.page_pool: Optional[PagePool] = None
+        self.page_size = 0
+        self._pt = None                  # host page-table mirror (np)
+        if plan.paged and self.model.supports_paged_cache:
+            self.page_size = plan.page_size or auto_page_size(max_len)
+            self.page_pool = PagePool(
+                plan.vector.pages, n_slots, max_len // self.page_size,
+                total_pages=plan.page_budget)
+            self.stats["page_deferrals"] = 0
+            self.stats["page_hwm"] = 0
+        self.prefill_buckets = self._resolve_buckets(plan.prefill_buckets)
+        self._t0 = 0.0
+        self._started = False
+        self._cache = None
+        self._step_no = 0
+        self._slot_req: List[Optional[Request]] = [None] * n_slots
+        self._next_tok = None
+        self._remaining = None
+        self._pos = None
+        self._eos_id = None
+        self._has_eos = None
+        self._dev_state = None     # device-resident state (fused mode)
+
+    def _resolve_buckets(self, buckets: Buckets) -> Tuple[int, ...]:
+        """-> the active bucket set (empty tuple = exact-length prefill)."""
+        auto = isinstance(buckets, str)
+        if auto and buckets not in ("auto", "pow2"):
+            raise ValueError(f"unknown prefill_buckets mode {buckets!r}")
+        if not buckets:
+            return ()
+        if not self.model.supports_padded_prefill:
+            if auto:
+                return ()
+            raise ValueError(
+                f"{self.cfg.name}: bucketed prefill needs a pure-attention "
+                f"stack without rolling-window caches")
+        if auto:
+            return pow2_buckets(self.max_len)
+        out = tuple(sorted({min(int(b), self.max_len) for b in buckets}))
+        if not all(b > 0 for b in out):
+            raise ValueError(f"buckets must be positive, got {buckets}")
+        return out
+
+    def _bucket_of(self, length: int) -> int:
+        for b in self.prefill_buckets:
+            if b >= length:
+                return b
+        raise ValueError(f"prompt length {length} exceeds the largest "
+                         f"bucket {self.prefill_buckets[-1]}")
+
+    def compile_count(self) -> int:
+        """Always 0: eager PyTorch compiles no executables (the
+        reference counts jit specializations here)."""
+        return 0
+
+    def submit(self, req: Request):
+        req.output = []
+        if len(req.prompt) >= self.max_len:
+            raise ValueError(
+                f"prompt of {len(req.prompt)} tokens cannot fit max_len="
+                f"{self.max_len}")
+        self.queue.append(req)
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device)
+
+    # ----- slot lifecycle -------------------------------------------------
+    def _bind(self, slot: int, req: Request,
+              first_tok: Optional[int] = None):
+        """Host bookkeeping shared by both admission paths.  ``first_tok``
+        is None in fused-horizon mode: the first token surfaces through
+        the next horizon's trace."""
+        self._slot_req[slot] = req
+        if first_tok is not None:
+            self._next_tok[slot] = first_tok
+        self._remaining[slot] = req.max_new_tokens
+        self._pos[slot] = len(req.prompt)
+        self._eos_id[slot] = -1 if req.eos_id is None else req.eos_id
+        self._has_eos[slot] = req.eos_id is not None
+        self.admit_order.append(req.rid)
+        self.admit_steps[req.rid] = self._step_no
+
+    def _land(self, many, logits, batch: List[Tuple[int, Request]]):
+        """Scatter a prefill's rows (row j = batch[j]) into their slots,
+        then update the decode state and bind the requests."""
+        slots = [slot for slot, _ in batch]
+        lengths = [len(req.prompt) for _, req in batch]
+        if self.page_pool is not None:
+            _scatter_slots_paged(self._cache, many, slots, lengths,
+                                 self._pt, self.page_pool.total_pages)
+        else:
+            _scatter_slots(self._cache, many, slots, lengths)
+        first = logits.argmax(-1).to(torch.int32)[:len(batch)]
+        if self._dev_state is not None:
+            # the device state is updated in place (the reference rebuilt
+            # it with .at[].set); no host sync: the first token surfaces
+            # in the next horizon's trace
+            s_idx = self._dev(np.asarray(slots, np.int64))
+            st = self._dev_state
+            st["tok"][s_idx] = first
+            st["remaining"][s_idx] = self._dev(np.asarray(
+                [r.max_new_tokens for _, r in batch], np.int32))
+            st["finished"][s_idx] = False
+            st["eos"][s_idx] = self._dev(np.asarray(
+                [-1 if r.eos_id is None else r.eos_id for _, r in batch],
+                np.int32))
+            st["has_eos"][s_idx] = self._dev(np.asarray(
+                [r.eos_id is not None for _, r in batch]))
+            for slot, req in batch:
+                self._bind(slot, req)
+        else:
+            first = first.cpu().numpy()                     # one sync
+            for j, (slot, req) in enumerate(batch):
+                self._bind(slot, req, int(first[j]))
+            self.stats["host_syncs"] += 1
+
+    def _admit(self, slot: int, req: Request):
+        """Prefill ``req`` alone at its exact length and land it in
+        ``slot``."""
+        prompt = self._dev(np.asarray(req.prompt, np.int32)[None])
+        one = self.model.init_cache(1, self.max_len)
+        logits, one = self.model.prefill(self.params, {"tokens": prompt},
+                                         one)
+        self._land(one, logits, [(slot, req)])
+        self.stats["prefills"] += 1
+        self.stats["prefilled_requests"] += 1
+
+    def _admit_batch(self, batch: List[Tuple[int, Request]]):
+        """Admit a round at once: every prompt pads to the round's length
+        bucket and ONE fixed (n_slots)-row batched prefill runs.  Row and
+        length padding are invisible (independent rows; causal
+        attention), so outputs match the exact-length path."""
+        n = self.n_slots
+        bucket = self._bucket_of(max(len(r.prompt) for _, r in batch))
+        toks = np.zeros((n, bucket), np.int32)
+        last = np.zeros((n,), np.int32)
+        for j, (_, req) in enumerate(batch):
+            toks[j, :len(req.prompt)] = req.prompt
+            last[j] = len(req.prompt) - 1
+        logits, many = self.model.prefill(
+            self.params, {"tokens": self._dev(toks)},
+            self.model.init_cache(n, self.max_len),
+            last_index=self._dev(last))
+        self._land(many, logits, batch)
+        self.stats["prefills"] += 1
+        self.stats["prefilled_requests"] += len(batch)
+
+    def _retire(self, slot: int):
+        req = self._slot_req[slot]
+        self.latency[req.rid] = time.perf_counter() - self._t0
+        self.retire_steps[req.rid] = self._step_no
+        self.done.append(req)
+        self._slot_req[slot] = None
+        if self.page_pool is not None:
+            # return the pages AND sentinel the slot's device table row: a
+            # drained slot still rides the batched decode (horizon-1
+            # mode) and must not write into pages a new tenant now owns
+            self.page_pool.free(slot)
+            self._pt[slot] = sentinel(self.page_pool.total_pages)
+            self._cache["pt"][slot] = int(self._pt[slot, 0])   # in place
+
+    # ----- external stepping ---------------------------------------------
+    def start(self):
+        """Allocate the persistent slot cache and reset per-slot state.
+        Idempotent."""
+        if self._started:
+            return
+        b = self.n_slots
+        self._t0 = time.perf_counter()
+        if self.page_pool is not None:
+            self._cache = self.model.init_cache(
+                b, self.max_len, per_slot=True, page_size=self.page_size,
+                n_pages=self.page_pool.total_pages)
+            self._pt = np.full(
+                (b, self.max_len // self.page_size),
+                sentinel(self.page_pool.total_pages), np.int32)
+        else:
+            self._cache = self.model.init_cache(b, self.max_len,
+                                                per_slot=True)
+        self._slot_req = [None] * b
+        self._next_tok = np.zeros(b, np.int32)
+        self._remaining = np.zeros(b, np.int32)
+        self._pos = np.zeros(b, np.int64)
+        self._eos_id = np.full(b, -1, np.int32)
+        self._has_eos = np.zeros(b, bool)
+        if self.decode_horizon > 1:
+            # fused mode: the decode state lives on device between
+            # horizons; every slot starts drained
+            z = torch.zeros(b, dtype=torch.int32, device=self.device)
+            self._dev_state = {
+                "tok": z.clone(), "remaining": z.clone(),
+                "finished": torch.ones(b, dtype=torch.bool,
+                                       device=self.device),
+                "eos": torch.full((b,), -1, dtype=torch.int32,
+                                  device=self.device),
+                "has_eos": torch.zeros(b, dtype=torch.bool,
+                                       device=self.device),
+            }
+        self._started = True
+
+    @property
+    def paged(self) -> bool:
+        return self.page_pool is not None
+
+    @property
+    def n_active(self) -> int:
+        return sum(r is not None for r in self._slot_req)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.n_active > 0
+
+    def free_slots(self) -> List[int]:
+        occupied = [r is not None for r in self._slot_req]
+        return self.pool.admissible(occupied)
+
+    def admissible_slots(self) -> List[int]:
+        occupied = [r is not None for r in self._slot_req]
+        return self.pool.admissible(occupied, queue_len=len(self.queue))
+
+    def admit_waiting(self) -> int:
+        """Admit queued requests into every admissible slot; -> count.
+        With buckets active the round admits as one batched prefill;
+        prompts longer than the largest bucket take the exact-length
+        path."""
+        self.start()
+        batch: List[Tuple[int, Request]] = []
+        for slot in self.admissible_slots():
+            if not self.queue:
+                break
+            if self.page_pool is not None:
+                # reserve the full worst-case page span up front; a dry
+                # pool DEFERS in FIFO order
+                req = self.queue[0]
+                span = min(len(req.prompt) + req.max_new_tokens,
+                           self.max_len)
+                need = max(1, -(-span // self.page_size))
+                if self.page_pool.alloc(slot, need) is None:
+                    break
+                self._pt[slot] = self.page_pool.table(slot)
+            batch.append((slot, self.queue.popleft()))
+        if self.page_pool is not None:
+            self.stats["page_deferrals"] = self.page_pool.deferrals
+            self.stats["page_hwm"] = self.page_pool.hwm
+        if not batch:
+            return 0
+        if self.prefill_buckets:
+            cap = self.prefill_buckets[-1]
+            fit = [(s, r) for s, r in batch if len(r.prompt) <= cap]
+            if fit:
+                self._admit_batch(fit)
+            for slot, req in batch:
+                if len(req.prompt) > cap:
+                    self._admit(slot, req)
+        else:
+            for slot, req in batch:
+                self._admit(slot, req)
+        return len(batch)
+
+    def step(self) -> List[Request]:
+        """Decode ``decode_horizon`` steps over every live slot; ->
+        requests retired.  Horizon 1 is the per-step host loop."""
+        if self.decode_horizon > 1:
+            return self._step_fused()
+        active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        if not active:
+            return []
+        logits, self._cache = self.model.decode_step(
+            self.params, self._cache, self._dev(self._next_tok),
+            use_ragged_kernel=self.use_ragged_kernel)
+        self.stats["decode_steps"] += 1
+        self.stats["decode_calls"] += 1
+        self.stats["host_syncs"] += 1
+        self.stats["slot_steps"] += self.n_slots
+        self.stats["busy_slot_steps"] += len(active)
+        self._step_no += 1
+        produced = self._next_tok.copy()
+        nxt = logits.argmax(-1).to(torch.int32).cpu().numpy()
+        self._pos += 1       # every row's cache index advanced
+        retired: List[Request] = []
+        for i in active:
+            r = self._slot_req[i]
+            r.output.append(int(produced[i]))
+            self._remaining[i] -= 1
+            finished = (self._remaining[i] <= 0
+                        or (r.eos_id is not None
+                            and int(nxt[i]) == r.eos_id))
+            if not finished and self._pos[i] >= self.max_len - 1:
+                r.output.append(int(nxt[i]))   # budget exhausted
+                finished = True
+            if finished:
+                self._retire(i)
+                retired.append(r)
+        self._next_tok = nxt
+        return retired
+
+    def _horizon_steps(self) -> int:
+        """Steps the next horizon can take at most: every live slot
+        retires on its budget or at the cache edge by then (an EOS can
+        only end it sooner).  Steps past the last live one would write
+        nothing, so the horizon stops there."""
+        need = 1
+        for i, r in enumerate(self._slot_req):
+            if r is not None:
+                budget = max(1, int(self._remaining[i]))
+                edge = max(1, self.max_len - 1 - int(self._pos[i]))
+                need = max(need, min(budget, edge))
+        return min(self.decode_horizon, need)
+
+    def _step_fused(self) -> List[Request]:
+        """One fused horizon: up to K decode steps on device, one host
+        drain of the token trace."""
+        if self.n_active == 0:
+            return []
+        k = self.decode_horizon
+        self._cache, self._dev_state, trace = self.model.decode_horizon(
+            self.params, self._cache, self._dev_state, horizon=k,
+            max_len=self.max_len, use_ragged_kernel=self.use_ragged_kernel,
+            n_steps=self._horizon_steps())
+        # ONE blocking transfer drains the whole K-step trace
+        names = ("tok", "live", "bonus_tok", "bonus", "retired")
+        packed = torch.stack([trace[n].to(torch.int32) for n in names])
+        tok, live, bonus_tok, bonus, retired_t = packed.cpu().numpy()
+        live, bonus, retired_t = (live.astype(bool), bonus.astype(bool),
+                                  retired_t.astype(bool))
+        executed = int(live.any(axis=1).sum())
+        self.stats["decode_steps"] += executed
+        self.stats["decode_calls"] += 1
+        self.stats["host_syncs"] += 1
+        self.stats["slot_steps"] += executed * self.n_slots
+        retired: List[Request] = []
+        for s in range(k):
+            row_live = live[s]
+            if not row_live.any():
+                break     # liveness is monotone within a horizon
+            self._step_no += 1
+            self.stats["busy_slot_steps"] += int(row_live.sum())
+            for i in np.nonzero(row_live)[0]:
+                r = self._slot_req[i]
+                r.output.append(int(tok[s, i]))
+                self._remaining[i] -= 1
+                if bonus[s, i]:
+                    r.output.append(int(bonus_tok[s, i]))
+                if retired_t[s, i]:
+                    self._retire(i)
+                    retired.append(r)
+        self._pos += executed    # every row's cache index advanced as one
+        return retired
+
+    def run(self) -> List[Request]:
+        self.start()
+        self._t0 = time.perf_counter()
+        while self.has_work:
+            self.admit_waiting()
+            if not self.step():
+                if self.n_active == 0:
+                    break
+        return self.done
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of slot-steps that decoded a live request."""
+        if not self.stats["slot_steps"]:
+            return 0.0
+        return self.stats["busy_slot_steps"] / self.stats["slot_steps"]

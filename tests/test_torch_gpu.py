@@ -1,0 +1,192 @@
+"""The port's CUDA decode-attention kernels on the card, against their
+plain PyTorch versions.
+
+Every test here needs a CUDA device and the CUDA toolkit (the kernels are
+built with nvcc at first use and have no CPU mode): the ``cuda`` fixture
+skips them where there is no card.  On a machine with one:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: fp32 5e-5 (the same arithmetic as the plain version, summed
+in another order); bf16 4 * 2^-8 * max|plain output|, between 2 and 4
+bf16 ulps of the largest output (both accumulate in fp32 and round once
+to bf16, so they differ by at most one ulp).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.models import Model
+
+pytestmark = pytest.mark.gpu
+
+FP32_TOL = 5e-5
+BF16_REL_TOL = 4 * 2.0 ** -8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_within_tolerance(out, expect):
+    tol = (BF16_REL_TOL * expect.float().abs().max().item()
+           if expect.dtype == torch.bfloat16 else FP32_TOL)
+    assert (out.float() - expect.float()).abs().max().item() <= tol
+
+
+def _rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g,dh", [(2, 16), (3, 20), (7, 64), (1, 128)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_ragged_kernel_matches_plain(cuda, g, dh, dtype, softcap):
+    gen = torch.Generator(device="cuda").manual_seed(g * dh)
+    b, hkv, smax = 5, 2, 96
+    cur = torch.tensor([0, 1, 95, 96, 400], dtype=torch.int32, device=cuda)
+    q = _rand(gen, (b, 1, hkv * g, dh), dtype)
+    k = _rand(gen, (b, smax, hkv, dh), dtype)
+    v = _rand(gen, (b, smax, hkv, dh), dtype)
+    out = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
+    torch.cuda.synchronize()
+    expect = ref.ragged_decode_ref(q, k, v, cur, softcap=softcap)
+    assert out.dtype == dtype and out.shape == q.shape
+    _assert_within_tolerance(out, expect)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("g,dh,ps", [(2, 16, 8), (3, 20, 16), (7, 64, 64)])
+def test_paged_kernel_matches_plain(cuda, g, dh, ps, dtype):
+    """A tight pool, scrambled disjoint tables, sentinel entries, and a
+    retired row whose table is all sentinel."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, hkv, max_pages = 4, 2, 6
+    max_len = max_pages * ps
+    cur_list = [0, max_len - 1, ps, max_len + 5]
+    n_pages = 1 + max_pages + 2 + 1
+    perm = torch.randperm(n_pages, generator=gen, device=cuda).int()
+    pt = torch.full((b, max_pages), n_pages, dtype=torch.int32, device=cuda)
+    pt[0, :1], pt[1, :], pt[2, :2] = perm[:1], perm[1:7], perm[7:9]
+    cur = torch.tensor(cur_list, dtype=torch.int32, device=cuda)
+    q = _rand(gen, (b, 1, hkv * g, dh), dtype)
+    kp = _rand(gen, (n_pages, ps, hkv, dh), dtype)
+    vp = _rand(gen, (n_pages, ps, hkv, dh), dtype)
+    out = ops.paged_flash_decode_attention(q, kp, vp, pt, cur)
+    torch.cuda.synchronize()
+    expect = ref.paged_decode_ref(q, kp, vp, pt, cur)
+    _assert_within_tolerance(out, expect)
+
+
+def test_paged_equals_contiguous_bit_for_bit(cuda):
+    """Both kernels walk keys in the same order: the same cache through
+    either gives identical outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, hkv, g, dh, smax, ps = 3, 2, 7, 64, 256, 32
+    cur = torch.tensor([5, 200, 255], dtype=torch.int32, device=cuda)
+    q = _rand(gen, (b, 1, hkv * g, dh), torch.bfloat16)
+    k = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
+    v = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
+    n = b * smax // ps
+    perm = torch.randperm(n, generator=gen, device=cuda)
+    kp, vp = torch.empty_like(k).view(n, ps, hkv, dh), \
+        torch.empty_like(v).view(n, ps, hkv, dh)
+    kp[perm], vp[perm] = k.reshape(n, ps, hkv, dh), v.reshape(n, ps, hkv, dh)
+    table = perm.reshape(b, smax // ps).int()
+    assert torch.equal(ops.flash_decode_attention(q, k, v, cur),
+                       ops.paged_flash_decode_attention(q, kp, vp, table,
+                                                        cur))
+
+
+def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = _rand(gen, (2, 1, 4, 16), torch.float32)
+    k = _rand(gen, (2, 32, 2, 16), torch.float32)
+    cur = torch.tensor([3, 31], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    ops.flash_decode_attention(q, k, k, cur)
+    assert ops.LAUNCHES == {"ragged_decode": 1, "paged_decode": 0}
+    with pytest.raises(ValueError):
+        ops.flash_decode_attention(q, k, k, cur.long())
+    with pytest.raises(ValueError):
+        ops.flash_decode_attention(q.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), k, k, cur)
+    with pytest.raises(TypeError):
+        ops.flash_decode_attention(q.half(), k.half(), k.half(), cur)
+    assert ops.LAUNCHES["ragged_decode"] == 1
+
+
+@pytest.mark.parametrize("pages", [False, True])
+def test_model_decode_runs_the_kernels(cuda, pages):
+    """On the card decode attention launches the kernel in every layer,
+    whatever use_ragged_kernel says, and the logits match the CPU's."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    kv = np.random.default_rng(0).standard_normal((2, 2, 2, 32, 2, 16))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, dev)
+        p = m.prepare_params(params)
+        paged = dict(page_size=8, n_pages=8) if pages else {}
+        cache = m.init_cache(2, 32, per_slot=True, **paged)
+        layers = cache["stack"]["body"][0]["attn"]
+        for name, val in zip(("k", "v"), torch.as_tensor(kv).float()):
+            layers[name].view(val.shape).copy_(val)
+        if pages:
+            cache["pt"][:] = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+        cache["idx"][:] = torch.tensor([0, 21], dtype=torch.int32)
+        ops.reset_launch_counts()
+        out, _ = m.decode_step(p, cache, torch.tensor([3, 4], device=dev),
+                               use_ragged_kernel=False)
+        logits[dev] = out.cpu()
+        name = "paged_decode" if pages else "ragged_decode"
+        assert ops.LAUNCHES[name] == (cfg.n_layers if dev == "cuda" else 0)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0,
+                               atol=1e-4)
+
+
+def _engine_run(cfg, params, device, horizon, pages, buckets="auto"):
+    from repro_torch.core.plan import EndpointPlan, SharingVector
+    from repro_torch.serve.engine import ContinuousEngine, Request
+    plan = EndpointPlan(
+        vector=SharingVector(pages=4 if pages else 1), n_slots=3,
+        max_len=48, decode_horizon=horizon, prefill_buckets=buckets,
+        executor="continuous", page_budget=8 if pages else None)
+    eng = ContinuousEngine(cfg, params, plan, device=device)
+    rng = np.random.default_rng(5)
+    for rid in range(10):
+        prompt = rng.integers(1, 128, size=int(rng.integers(2, 20)))
+        eng.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
+                           max_new_tokens=int(rng.integers(1, 9)),
+                           eos_id=7 if rid == 4 else None))
+    eng.submit(Request(rid=10, prompt=np.arange(1, 41, dtype=np.int32),
+                       max_new_tokens=20))
+    done = {r.rid: r.output for r in eng.run()}
+    return done, eng.admit_order, eng.retire_steps
+
+
+@pytest.mark.parametrize("pages", [False, True], ids=["contiguous", "pages4"])
+def test_engine_on_card_matches_cpu(cuda, pages):
+    """The per-step loop (K=1), the fused horizon (K=4) and exact-length
+    admission on the card serve the CPU's tokens, admission order and
+    retirement steps at fp32 (tight shared page pool when paged)."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    for horizon, buckets in ((1, "auto"), (4, "auto"), (4, None)):
+        expect = _engine_run(cfg, params, "cpu", horizon, pages, buckets)
+        got = _engine_run(cfg, params, "cuda", horizon, pages, buckets)
+        assert got == expect, (horizon, buckets)

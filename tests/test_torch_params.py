@@ -1,0 +1,105 @@
+"""The weight bridge and the port's parameter specs against the JAX
+reference: the same spec tree (shapes, axes, inits), a bit-exact round
+trip of the reference's own weights, and the port's own init drawing the
+reference's distributions."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import params as jparams_mod
+from repro.models.model import Model as JModel
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import params as P
+from repro_torch.models.model import Model
+
+ARCHS = ["qwen2-0.5b", "smollm-360m"]
+
+
+def _flat_specs(tree, is_leaf):
+    return [(s.shape, s.axes, s.init, s.scale, s.fan_in)
+            for s in P.tree_leaves(tree, is_leaf)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_spec_tree_matches_reference(arch):
+    jspecs = JModel(jax_smoke_config(arch)).param_specs()
+    tspecs = Model(get_smoke_config(arch), device="cpu").param_specs()
+    jflat = [(s.shape, s.axes, s.init, s.scale, s.fan_in)
+             for s in jax.tree.leaves(jspecs, is_leaf=jparams_mod.is_spec)]
+    assert _flat_specs(tspecs, P.is_spec) == jflat
+    assert jax.tree.structure(
+        jax.tree.map(lambda s: 0, jspecs, is_leaf=jparams_mod.is_spec)) \
+        == jax.tree.structure(P.tree_map(lambda s: 0, tspecs, P.is_spec))
+    assert Model(get_smoke_config(arch), device="cpu").n_params() \
+        == JModel(jax_smoke_config(arch)).n_params()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bridge_round_trip_is_bit_exact(arch):
+    """The reference's PRNGKey(0) weights -> tensors -> numpy, equal bit
+    for bit on every leaf, with the tree layout kept."""
+    jp = jax.device_get(JModel(jax_smoke_config(arch)).init(
+        jax.random.PRNGKey(0)))
+    tp = P.from_numpy(jp)
+    back = P.to_numpy(tp)
+    j_leaves = jax.tree.leaves(jp)
+    t_leaves = P.tree_leaves(tp, torch.is_tensor)
+    b_leaves = P.tree_leaves(back, lambda x: isinstance(x, np.ndarray))
+    assert len(j_leaves) == len(t_leaves) == len(b_leaves)
+    for j, t, b in zip(j_leaves, t_leaves, b_leaves):
+        assert t.dtype == torch.float32 and tuple(t.shape) == j.shape
+        np.testing.assert_array_equal(
+            t.numpy().view(np.uint32), np.asarray(j).view(np.uint32))
+        np.testing.assert_array_equal(b.view(np.uint32),
+                                      np.asarray(j).view(np.uint32))
+
+
+def test_bridge_bf16_leaves_are_bit_exact():
+    a = jnp.asarray(np.random.default_rng(0).standard_normal((4, 5)),
+                    jnp.bfloat16)
+    t = P.from_numpy({"w": [np.asarray(a)]})["w"][0]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(),
+                                  np.asarray(a.astype(jnp.float32)))
+    np.testing.assert_array_equal(P.to_numpy({"w": t})["w"],
+                                  np.asarray(a.astype(jnp.float32)))
+
+
+def test_own_init_shapes_and_distributions():
+    """Seeded torch.Generator draws with the reference's per-leaf std:
+    fan_in^-0.5 for projections (stacked axes excluded), 0.02 for the
+    embedding, zeros for biases, ones for norm scales."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), d_model=128,
+                              d_ff=256, vocab=512)
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    specs = model.param_specs()
+    for spec, leaf in zip(P.tree_leaves(specs, P.is_spec),
+                          P.tree_leaves(params, torch.is_tensor)):
+        assert tuple(leaf.shape) == spec.shape and leaf.dtype == torch.float32
+        if spec.init == "zeros":
+            assert not leaf.any()
+        elif spec.init == "ones":
+            assert (leaf == 1).all()
+        else:
+            fan_in = spec.fan_in or spec.shape[-2]
+            std = 0.02 if spec.init == "normal" else fan_in ** -0.5
+            assert abs(leaf.std().item() / std - 1) < 0.1, spec
+            assert abs(leaf.mean().item()) < 0.1 * std, spec
+    again = model.init(torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(
+        P.tree_leaves(params, torch.is_tensor),
+        P.tree_leaves(again, torch.is_tensor)))
+
+
+def test_later_slice_blocks_raise():
+    for arch in ("recurrentgemma-2b", "xlstm-1.3b", "granite-moe-1b-a400m",
+                 "seamless-m4t-large-v2", "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError):
+            Model(get_smoke_config(arch), device="cpu")
