@@ -6,12 +6,17 @@
 Phases (any failure exits non-zero, without the final result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both decode-attention kernels from ``src/repro_torch/.../csrc``
-   with nvcc for sm_90a, timed, with ptxas' register and memory report;
-3. each kernel against its plain PyTorch version on the card, at
+2. build the three kernels (two decode-attention kernels and the RG-LRU
+   scan) from their packages' ``csrc/`` under ``src/repro_torch/kernels``
+   with nvcc for sm_90a, one nvcc each, all started together, timed,
+   with ptxas' register and memory report;
+3. each decode kernel against its plain PyTorch version on the card, at
    qwen2-0.5b's decode shapes (B=8, Hkv=2, G=7, dh=64, Smax=1024), fp32
    and bf16, softcap 0 and 30, edge lengths, and for the paged kernel a
-   fragmented page table with sentinels over a tight pool;
+   fragmented page table with sentinels over a tight pool; then the
+   RG-LRU scan against its plain version at T in {1, 7, 2048, 3001}, C in
+   {64, 2560}, fp32 and bf16, with ``a`` near 0.999 so the carry grows,
+   and on strided views;
 4. qwen2-0.5b at full width (24 layers, random weights from
    ``torch.Generator`` seed 0) served through ``repro_torch.serve.connect``
    with a contiguous and with a paged (pages=4) cache: 16 requests, every
@@ -23,10 +28,22 @@ Phases (any failure exits non-zero, without the final result line):
    launched against executed;
 5. the qwen2-0.5b smoke config at fp32 served on the card (kernels) and
    on the CPU (plain versions): the tokens must agree;
-6. per kernel: its error against the plain version at phase 4's shapes
-   (held to the tolerance), time per call, its bound, the plain
-   version's time and ``scaled_dot_product_attention``'s (a yardstick the
-   port never calls), as one JSON line.
+6. recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks and 8
+   local-attention blocks with window 2048, random weights from a
+   ``torch.Generator`` seed 0) served through ``connect``: 8 slots,
+   max_len 4096, horizon 8, 12 requests of 64 new tokens with prompts
+   from 64 to 3500 tokens (four prefill past the window, four cross
+   position 2048 while decoding, four stay inside it); every request
+   must return its 64 tokens, the RG-LRU kernel must launch 18 times per
+   prefill and the decode kernels never (rolling layers take plain
+   decode attention, as in the reference);
+7. the recurrentgemma smoke config at fp32 served on the card and on the
+   CPU, prompts past its window of 16: the tokens must agree;
+8. per kernel: its error against the plain version at the main path's
+   shapes (held to the tolerance), time per call, its bound, the plain
+   version's time and, for decode attention,
+   ``scaled_dot_product_attention``'s (a yardstick the port never calls;
+   no PyTorch call computes a linear recurrence), as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
@@ -34,6 +51,7 @@ torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -53,6 +71,13 @@ FP32_TOL = 5e-5
 BF16_REL_TOL = 4 * 2.0 ** -8
 B, HKV, G, DH, SMAX = 8, 2, 7, 64, 1024
 N_REQUESTS, MAX_NEW, N_SLOTS, HORIZON = 16, 64, 8, 8
+#: recurrentgemma-2b's phase: cache length and prompt lengths
+RG_MAX_LEN = 4096
+RG_PROMPTS = (64, 300, 1000, 1500, 2000, 2000, 2030, 2040, 2100, 2500,
+              3000, 3500)
+#: RG-LRU scan limit in fp32, times max(1, max|plain output|): the kernel
+#: repeats the plain version's operations in its order
+RGLRU_FP32_REL_TOL = 1e-5
 
 KERNELS = {
     "ragged_decode": {
@@ -66,6 +91,11 @@ KERNELS = {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "paged_decode.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:227",
+    },
+    "rglru_scan": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru/kernel.py:44",
     },
 }
 
@@ -98,8 +128,11 @@ def build_kernels():
             if "Compiling entry" in line or "Used" in line:
                 log(f"    {line.strip()}")
         lib = build.load(name)
-        log(f"    dynamic shared memory per block at G={G}, dh={DH}: "
-            f"{lib.decode_smem_bytes(G, DH)} bytes")
+        if build.PACKAGES[name] == "flash_attention":
+            lib.decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.decode_smem_bytes.restype = ctypes.c_longlong
+            log(f"    dynamic shared memory per block at G={G}, dh={DH}: "
+                f"{lib.decode_smem_bytes(G, DH)} bytes")
 
 
 # ----- phase 3 ---------------------------------------------------------------
@@ -196,6 +229,53 @@ def check_kernels() -> None:
                              f"{bad}")
 
 
+def rglru_tolerance(expect) -> float:
+    import torch
+    top = expect.float().abs().max().item()
+    if expect.dtype == torch.bfloat16:
+        return BF16_REL_TOL * top
+    return RGLRU_FP32_REL_TOL * max(1.0, top)
+
+
+def _rglru_inputs(gen, b, t, c, dtype):
+    """a = 1 - 0.001 * U(0, 1), near 0.999, so the carry grows to about
+    1000 times x; x standard normal."""
+    import torch
+    u = torch.rand((b, t, c), generator=gen, device="cuda")
+    return (1.0 - 1e-3 * u).to(dtype), _rand(gen, (b, t, c), dtype)
+
+
+def check_rglru() -> None:
+    import torch
+    from repro_torch.kernels.rglru import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bad = []
+    cases = [(dtype, t, c) for dtype in (torch.float32, torch.bfloat16)
+             for c in (64, 2560) for t in (1, 7, 2048, 3001)]
+    for dtype, t, c in cases + [("strided", 300, 2560)]:
+        if dtype == "strided":
+            a, x = _rglru_inputs(gen, 2, t, c, torch.float32)
+            # a transposed view and every other channel of a wider tensor
+            a_in = a.transpose(1, 2).contiguous().transpose(1, 2)
+            x_in = torch.stack([x, -x], dim=-1).flatten(-2)[..., ::2]
+        else:
+            a, x = _rglru_inputs(gen, 2, t, c, dtype)
+            a_in, x_in = a, x
+        out = ops.rglru_scan(a_in, x_in)
+        torch.cuda.synchronize()
+        expect = ref.rglru_scan_ref(a, x)
+        err = (out.float() - expect.float()).abs().max().item()
+        tol = rglru_tolerance(expect)
+        log(f"rglru_scan {dtype} B=2 T={t} C={c}: max abs err {err:.3e} "
+            f"(tolerance {tol:.3e}; max |plain| "
+            f"{expect.float().abs().max().item():.1f})")
+        if not err <= tol:
+            bad.append((str(dtype), t, c, err))
+    if bad:
+        raise AssertionError(f"rglru_scan disagrees with its plain version: "
+                             f"{bad}")
+
+
 # ----- phase 4 ---------------------------------------------------------------
 
 def _prompts(vocab, seed=0):
@@ -205,16 +285,30 @@ def _prompts(vocab, seed=0):
             .astype(np.int32) for _ in range(N_REQUESTS)]
 
 
-def _plan(pages: bool):
+def _plan(pages: bool, max_len: int = SMAX):
     from repro_torch.core.plan import EndpointPlan, SharingVector
     return EndpointPlan(vector=SharingVector(pages=4 if pages else 1),
-                        n_slots=N_SLOTS, max_len=SMAX,
+                        n_slots=N_SLOTS, max_len=max_len,
                         decode_horizon=HORIZON, executor="continuous",
                         use_ragged_kernel=True)
 
 
+def reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    ops.reset_launch_counts()
+    rglru_ops.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    return dict(ops.LAUNCHES, **rglru_ops.LAUNCHES)
+
+
 def serve_once(cfg, params, prompts, pages: bool, device: str,
-               max_new=None, capped: bool = True, one_stream: bool = False):
+               max_new=None, capped: bool = True, one_stream: bool = False,
+               max_len: int = SMAX):
     """Serve ``prompts`` through ``connect``, each asking for ``max_new[i]``
     tokens (default MAX_NEW), all at once or (``one_stream``) in order on
     one stream, each released when its predecessor retires; -> (outputs
@@ -223,10 +317,10 @@ def serve_once(cfg, params, prompts, pages: bool, device: str,
     so steps after the last live slot are launched (and write nothing)
     instead of cut by the engine."""
     import torch
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.serve import connect
     max_new = max_new or [MAX_NEW] * len(prompts)
-    client = connect(cfg, _plan(pages), params=params, device=device)
+    client = connect(cfg, _plan(pages, max_len), params=params,
+                     device=device)
     stream = client.stream() if one_stream else None
     rids = [client.submit(p, max_new_tokens=n, stream=stream)
             for p, n in zip(prompts, max_new)]
@@ -246,13 +340,13 @@ def serve_once(cfg, params, prompts, pages: bool, device: str,
         return retired
 
     eng.step = timed_step
-    ops.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = client.run()
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(ops.LAUNCHES)
+    counts = read_counts()
     del eng.step      # the wrappers refer back to the engine: free them now
     eng.__dict__.pop("_horizon_steps", None)
     return [out[r] for r in rids], eng, counts, decode_s[0], wall
@@ -386,6 +480,108 @@ def smoke_card_vs_cpu() -> None:
 
 # ----- phase 6 ---------------------------------------------------------------
 
+def _rg_prompts(vocab, lengths, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, size=n).astype(np.int32)
+            for n in lengths]
+
+
+def serve_recurrentgemma(card: str):
+    """Full-width recurrentgemma-2b through connect: exact-length
+    admission, rolling caches, 18 RG-LRU prefills per request on the
+    kernel, no decode-kernel launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("recurrentgemma-2b")
+    n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    t0 = time.perf_counter()
+    params = Model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"recurrentgemma-2b: {Model(cfg, 'cpu').n_params() / 1e6:.1f}M "
+        f"params, {cfg.n_layers} layers ({n_rglru} RG-LRU, "
+        f"{cfg.n_layers - n_rglru} local attention, window "
+        f"{cfg.attn_window}), d_model {cfg.d_model}, lru {cfg.lru_width}, "
+        f"vocab {cfg.vocab}, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    prompts = _rg_prompts(cfg.vocab, RG_PROMPTS, seed=3)
+    torch.cuda.reset_peak_memory_stats()
+    outs, eng, counts, dec_s, wall = serve_once(
+        cfg, params, prompts, False, "cuda", max_len=RG_MAX_LEN)
+    prefills = eng.stats["prefills"]
+    steps = eng.stats["decode_steps"]
+    expect = {k: 0 for k in counts}
+    expect["rglru_scan"] = n_rglru * prefills
+    tok = eng.stats["busy_slot_steps"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"serve recurrentgemma-2b (contiguous rolling cache, buckets "
+        f"{list(eng.prefill_buckets) or 'off'}, paged {eng.paged}): "
+        f"{len(outs)} requests, {sum(map(len, outs))} tokens, {prefills} "
+        f"prefills, {steps} decode steps in {eng.stats['decode_calls']} "
+        f"horizons; launches {counts} (expected {expect}; decode-attention "
+        f"kernels {counts['ragged_decode'] + counts['paged_decode']})")
+    log(f"  decode {tok / dec_s:.1f} tok/s ({tok} tokens in {dec_s:.3f}s, "
+        f"batch {N_SLOTS}, horizon {HORIZON}); wall {wall:.2f}s; "
+        f"max_memory_allocated {peak:.2f} GiB; on {card}")
+    bad = []
+    if not all(len(o) == MAX_NEW and all(0 <= t < cfg.vocab for t in o)
+               for o in outs):
+        bad.append(f"a request came back without its {MAX_NEW} tokens")
+    if counts != expect or prefills != len(prompts):
+        bad.append(f"launches {counts} != {expect} ({prefills} prefills)")
+    # the served model's logits on the shortest prompt: finite, full vocab
+    model = eng.model
+    one = model.init_cache(1, RG_MAX_LEN)
+    logits, _ = model.prefill(
+        eng.params, {"tokens": torch.as_tensor(prompts[0][None],
+                                               device="cuda")}, one)
+    finite = bool(torch.isfinite(logits).all())
+    log(f"  prefill logits on the {len(prompts[0])}-token prompt: shape "
+        f"{tuple(logits.shape)}, finite {finite}, max |logit| "
+        f"{logits.abs().max().item():.3f}")
+    if not finite or logits.shape != (1, cfg.vocab):
+        bad.append("prefill logits not finite or of the wrong shape")
+    del eng, model, one, params
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"launches": counts["rglru_scan"], "tok_s": tok / dec_s,
+            "wall": wall, "prefills": prefills}
+
+
+# ----- phase 7 ---------------------------------------------------------------
+
+def smoke_recurrentgemma_card_vs_cpu() -> None:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    lengths = np.random.default_rng(4).integers(4, 48, size=12)
+    prompts = _rg_prompts(cfg.vocab, [int(n) for n in lengths], seed=5)
+    card, eng, counts, _, _ = serve_once(cfg, params, prompts, False,
+                                         "cuda", max_new=[16] * 12,
+                                         max_len=64)
+    cpu, _, cpu_counts, _, _ = serve_once(cfg, params, prompts, False,
+                                          "cpu", max_new=[16] * 12,
+                                          max_len=64)
+    same = sum(x == y for p, q in zip(card, cpu) for x, y in zip(p, q))
+    total = sum(len(p) for p in cpu)
+    log(f"recurrentgemma smoke fp32 (window {cfg.attn_window}, prompts "
+        f"{sorted(int(n) for n in lengths)}): card (launches {counts}) vs "
+        f"CPU (plain versions, launches {cpu_counts}): {same}/{total} "
+        f"tokens agree")
+    if card != cpu or sum(cpu_counts.values()) or \
+            counts["rglru_scan"] != 4 * eng.stats["prefills"]:
+        raise AssertionError("recurrentgemma smoke: card and CPU differ or "
+                             "the RG-LRU kernel did not run")
+
+
+# ----- phase 8 ---------------------------------------------------------------
+
 def _time_ms(fn, n_layers, iters=10):
     """Mean ms per call over ``iters`` sweeps of ``n_layers`` calls, each
     on its own layer's inputs (the decode step's working set, not one
@@ -486,13 +682,52 @@ def time_kernels(runs, lengths):
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      library_ms=lib_ms)
         out_lines.append(entry)
-        log(f"{name}: {ms * 1e3:.1f} us/call, bound {entry['bound_ms'] * 1e3:.2f} "
+        log(f"{name}: {ms * 1e3:.1f} us/call, bound "
+            f"{entry['bound_ms'] * 1e3:.2f} "
             f"us ({entry['bound_by']}: {kv_bytes / 1e6:.2f} MB of K/V), "
             f"plain {plain_ms * 1e3:.1f} us, SDPA {lib_ms * 1e3:.1f} us "
             f"(on the contiguous cache; max abs err vs plain {lib_err:.3e}), "
             f"max abs err {err:.3e} (tolerance {tol:.3e} or more); "
             f"cur {cur_list}")
     return out_lines
+
+
+def time_rglru(launches: int):
+    """The RG-LRU scan at the main path's shapes: (1, T=2048, C=2560)
+    fp32, the gates' a and x of one prompt of 2048 tokens, one input per
+    RG-LRU layer of the 18 (the prefill's working set)."""
+    import torch
+    from repro_torch.kernels.rglru import ops, ref
+    n_layers, t, c = 18, 2048, 2560
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    inputs = [_rglru_inputs(gen, 1, t, c, torch.float32)
+              for _ in range(n_layers)]
+    err, tol = 0.0, float("inf")
+    for a, x in inputs:
+        expect = ref.rglru_scan_ref(a, x)
+        e = (ops.rglru_scan(a, x).float() - expect).abs().max().item()
+        err, tol = max(err, e), min(tol, rglru_tolerance(expect))
+        if not e <= rglru_tolerance(expect):
+            raise AssertionError(f"rglru_scan at T={t}, C={c}: err {e} > "
+                                 f"{rglru_tolerance(expect)}")
+    ms = _time_ms(lambda i: ops.rglru_scan(*inputs[i]), n_layers)
+    plain_ms = _time_ms(lambda i: ref.rglru_scan_ref(*inputs[i]), n_layers,
+                        iters=1)
+    elems = t * c
+    t_bytes = 3 * elems * 4 / MEM_BYTES_PER_S * 1e3
+    t_ops = 2 * elems / FP32_FLOPS_PER_S * 1e3
+    entry = dict(name="rglru_scan", **KERNELS["rglru_scan"],
+                 launches=launches, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=None)
+    log(f"rglru_scan: {ms * 1e3:.1f} us/call, bound "
+        f"{entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']}: "
+        f"{3 * elems * 4 / 1e6:.1f} MB), plain {plain_ms:.1f} ms, "
+        f"max abs err {err:.3e} (tolerance {tol:.3e} or more); "
+        f"launches on the main path {launches}; no PyTorch call computes "
+        f"a linear recurrence (library: null)")
+    return entry
 
 
 def main() -> int:
@@ -534,23 +769,31 @@ def main() -> int:
         log(f"FAILED phases: {failed}")
         return 1
     phase("kernels vs plain versions", check_kernels)
+    phase("rglru_scan vs plain version", check_rglru)
     served = phase("serve qwen2-0.5b at full width", serve_full_width, card)
     if served is not None:
         phase("horizon cut vs uncut", horizon_cap, *served[2:], served[1],
               card)
     phase("smoke config at fp32: card vs CPU", smoke_card_vs_cpu)
-    kernels = None
+    rg = phase("serve recurrentgemma-2b at full width",
+               serve_recurrentgemma, card)
+    phase("recurrentgemma smoke config at fp32: card vs CPU",
+          smoke_recurrentgemma_card_vs_cpu)
+    kernels = rg_kernel = None
     if served is not None:
         runs, prompts = served[:2]
         kernels = phase("kernel timing", time_kernels, runs,
                         [len(p) for p in prompts])
-    if failed or kernels is None:
+    if rg is not None:
+        rg_kernel = phase("rglru_scan timing", time_rglru, rg["launches"])
+    if failed or kernels is None or rg_kernel is None:
         log(f"FAILED phases: {failed}")
         return 1
-    log(f"decode tok/s: contiguous "
+    log(f"decode tok/s: qwen2-0.5b contiguous "
         f"{served[0]['ragged_decode']['tok_s']:.1f}, paged "
-        f"{served[0]['paged_decode']['tok_s']:.1f}; on {card}")
-    print(json.dumps({"kernels": kernels}))
+        f"{served[0]['paged_decode']['tok_s']:.1f}; recurrentgemma-2b "
+        f"{rg['tok_s']:.1f}; on {card}")
+    print(json.dumps({"kernels": kernels + [rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

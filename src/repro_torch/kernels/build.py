@@ -1,11 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
-plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``),
-at first use, into ``build/kernels/`` at the root of the checkout.  The
-library's file name carries a hash of its sources, so an edited kernel is
-always rebuilt and a current one is loaded without compiling.  Nothing
-here runs at import time: the CPU tests import every module.
+Each kernel lives in a package under ``kernels/`` and its source is that
+package's ``csrc/<name>.cu``.  Each compiles on its own into a shared
+library with a plain C interface (``nvcc -gencode
+arch=compute_90a,code=sm_90a -shared``), at first use, into
+``build/kernels/`` at the root of the checkout.  The library's file name
+carries a hash of its sources (the ``.cu`` and its package's ``.cuh``
+headers), so an edited kernel is always rebuilt and a current one is
+loaded without compiling.  Every library exports ``kernel_error_string``.
+Nothing here runs at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -19,18 +22,27 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-CSRC = Path(__file__).resolve().parent / "flash_attention" / "csrc"
+KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-#: kernel name -> C entry point's argument types (see csrc/<name>.cu)
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+#: kernel name -> its package under ``kernels/`` (the source is
+#: ``<package>/csrc/<name>.cu``)
+PACKAGES = {
+    "ragged_decode": "flash_attention",
+    "paged_decode": "flash_attention",
+    "rglru_scan": "rglru",
+}
+#: kernel name -> C entry point's argument types (see its source)
 SIGNATURES = {
     "ragged_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _L, _L, _L, _L, _L, _L, _F, _F, _I, _P],
     "paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _F, _F, _I, _P],
+    "rglru_scan": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                   _L, _L, _L, _I, _I, _P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -48,9 +60,15 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def csrc(name: str) -> Path:
+    """The ``csrc/`` directory of kernel ``name``'s package."""
+    return KERNELS_DIR / PACKAGES[name] / "csrc"
+
+
 def _library_path(name: str) -> Path:
+    src = csrc(name)
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(src.glob("*.cuh")) + [src / f"{name}.cu"]:
         h.update(f.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -59,7 +77,7 @@ def _library_path(name: str) -> Path:
 def _command(name: str, out: Path) -> list:
     return [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+            str(csrc(name) / f"{name}.cu")]
 
 
 def build(names: Sequence[str] = tuple(SIGNATURES)) -> Dict[str, dict]:
@@ -106,10 +124,8 @@ def load(name: str) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
-        lib.decode_error_string.argtypes = [ctypes.c_int]
-        lib.decode_error_string.restype = ctypes.c_char_p
-        lib.decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.decode_smem_bytes.restype = ctypes.c_longlong
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
 
@@ -117,6 +133,6 @@ def load(name: str) -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:
-        msg = lib.decode_error_string(code).decode()
+        msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                            f"{code} ({msg})")

@@ -176,7 +176,7 @@ int launch(Kernel kernel, int blocks, size_t smem, void* stream,
 
 }  // namespace decode_attn
 
-extern "C" const char* decode_error_string(int code) {
+extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

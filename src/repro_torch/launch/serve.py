@@ -8,8 +8,14 @@
   python -m repro_torch.launch.serve --arch qwen2-0.5b --smoke \
       --device cpu --pages 4 --max-len 64 --requests 8 --prompt-len 12
 
+  # recurrentgemma (RG-LRU + local attention): exact-length admission and
+  # a rolling cache, whatever the buckets and pages flags say
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+      --slots 8 --max-len 4096 --decode-horizon 8 --requests 8 \
+      --prompt-len 1024 --mixed-lengths --max-new 64
+
 Runs on the card unless ``--device cpu`` is given, and prints tokens per
-second and the decode kernels' launch counts.  Fleets, hints, adaptive
+second and the kernels' launch counts.  Fleets, hints, adaptive
 re-planning, tracing and faults arrive with later slices.
 """
 
@@ -26,6 +32,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.endpoints import Category
 from repro_torch.core.plan import EndpointPlan, SharingVector
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.serve import connect
 
 
@@ -137,6 +144,7 @@ def main(argv=None):
     engine = client.engine
     on_card = engine.device.type == "cuda"
     ops.reset_launch_counts()
+    rglru_ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = client.run()
     if on_card:
@@ -162,7 +170,7 @@ def main(argv=None):
               f"{engine.page_size}, {pool.total_pages} pages), "
               f"hwm {pool.hwm} ({pool.hwm / pool.total_pages:.0%}), "
               f"{pool.deferrals} deferrals")
-    print(f"kernel launches: {dict(ops.LAUNCHES)}"
+    print(f"kernel launches: {dict(ops.LAUNCHES, **rglru_ops.LAUNCHES)}"
           + ("" if on_card else " (CPU: plain versions, no launches)"))
     for rid in sorted(out)[:4]:
         print(f"  req {rid}: {out[rid]}")

@@ -112,27 +112,27 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     """Streaming-softmax attention over (q_block, kv_block) tiles; never
     holds more than (B, Hq, q_block, kv_block) scores.  With
     ``skip_future_blocks`` only the causally reachable kv prefix of each
-    q block is visited."""
+    q block is visited.
+
+    The reference asserts ``q_block | Sq`` and ``kv_block | Sk``; here the
+    last q and kv blocks may be short, so an exact-length prefill of any
+    prompt length runs (where the blocks divide, the tiles and their sums
+    are the reference's)."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     q_block = min(q_block, sq)
     kv_block = min(kv_block, sk)
-    assert sq % q_block == 0 and sk % kv_block == 0, (sq, q_block, sk,
-                                                      kv_block)
-    nq, nk = sq // q_block, sk // kv_block
+    nq, nk = -(-sq // q_block), -(-sk // kv_block)
     scale = dh ** -0.5
-    qh = q.reshape(b, nq, q_block, hkv, g, dh)
-    kh = k.reshape(b, nk, kv_block, hkv, dh)
-    vh = v.reshape(b, nk, kv_block, hkv, dh)
     outs = []
     for qi in range(nq):
-        q_i = qh[:, qi].float() * scale
-        q_pos = q_offset + qi * q_block + torch.arange(q_block,
-                                                       device=q.device)
-        acc = torch.zeros((b, hkv, g, q_block, dh), dtype=torch.float32,
+        q0, q1 = qi * q_block, min((qi + 1) * q_block, sq)
+        q_i = q[:, q0:q1].reshape(b, q1 - q0, hkv, g, dh).float() * scale
+        q_pos = q_offset + torch.arange(q0, q1, device=q.device)
+        acc = torch.zeros((b, hkv, g, q1 - q0, dh), dtype=torch.float32,
                           device=q.device)
-        m = torch.full((b, hkv, g, q_block), NEG_INF, dtype=torch.float32,
+        m = torch.full((b, hkv, g, q1 - q0), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
         n_kv = nk
@@ -140,9 +140,10 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
             n_kv = min(nk, (qi * q_block + q_block + kv_block - 1)
                        // kv_block)
         for kj in range(n_kv):
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, kh[:, kj].float())
+            k0, k1 = kj * kv_block, min((kj + 1) * kv_block, sk)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k[:, k0:k1].float())
             s = _softcap(s, softcap)
-            k_pos = kj * kv_block + torch.arange(kv_block, device=q.device)
+            k_pos = torch.arange(k0, k1, device=q.device)
             s = s.masked_fill(~_valid(q_pos, k_pos, causal, window),
                               NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
@@ -150,10 +151,10 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(-1)
             acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, vh[:, kj].float())
+                "bhgqk,bkhd->bhgqd", p, v[:, k0:k1].float())
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_block, hq, dh))
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q1 - q0, hq, dh))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 

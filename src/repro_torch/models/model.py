@@ -1,10 +1,12 @@
 """Model: config -> params / prefill / decode_step / decode_horizon.
 
-The serving half of ``repro.models.model`` for dense attention decoders,
-in eager PyTorch on an explicit device.  Parameters are the same tree as
-the reference's (``param_specs``); ``prepare_params`` places them on the
-device in the compute dtype once, where the reference cast every weight
-on every call (the values are identical).
+The serving half of ``repro.models.model`` for decoders of attention and
+RG-LRU blocks, in eager PyTorch on an explicit device.  Parameters are
+the same tree as the reference's (``param_specs``); ``prepare_params``
+places them on the device in the compute dtype once, where the reference
+cast every weight on every call (the values are identical), except the
+leaves whose specs say ``keep_fp32`` (the RG-LRU gates, which the
+reference reads in fp32), which stay fp32.
 
 Caches are dicts of tensors updated in place (see ``transformer``); the
 ``idx`` entry is replaced by a new tensor on every call, as in the
@@ -64,9 +66,19 @@ class Model:
         return P.n_params(self.param_specs())
 
     def prepare_params(self, params):
-        """One compute-dtype copy of every weight on this device."""
-        return P.tree_map(lambda a: a.to(self.device, self.dtype), params,
-                          torch.is_tensor)
+        """One copy of every weight on this device: the compute dtype,
+        except the leaves whose specs say ``keep_fp32``, kept in fp32."""
+        return P.tree_map(
+            lambda spec, leaf: leaf.to(
+                self.device,
+                torch.float32 if spec.keep_fp32 else self.dtype),
+            self.param_specs(), P.is_spec, params)
+
+    @property
+    def window_cache(self) -> bool:
+        """Sliding-window layers keep rolling caches (the reference's
+        rule: a window and a sub-quadratic stack)."""
+        return self.cfg.attn_window > 0 and self.cfg.sub_quadratic
 
     # ----- forward -------------------------------------------------------
     def _positions(self, b, s, offset=0):
@@ -79,10 +91,10 @@ class Model:
 
     def forward(self, params, batch, *, mode="prefill", cache=None,
                 skip_future=False, use_ragged_kernel=False,
-                decode_write_mask=None, idx_step=1):
-        """-> (hidden (B,S,d), new_cache).  ``idx_step`` is how far a
-        decode step advances ``idx`` (the fused horizon passes 0 for steps
-        the reference's early-exiting loop would not run)."""
+                decode_write_mask=None, step_active=None):
+        """-> (hidden (B,S,d), new_cache).  A decode step needs
+        ``step_active`` (0-d bool tensor): off, the step advances no
+        ``idx`` and leaves the recurrent state alone."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"], cfg)
         b, s = x.shape[:2]
@@ -95,16 +107,19 @@ class Model:
             attn_fn=select_attention(
                 cfg, s, skip_future=skip_future and mode == "prefill"),
             decode_idx=cache.get("idx"),
+            window_cache=self.window_cache,
             ragged_kernel=use_ragged_kernel and mode == "decode",
             decode_write_mask=(decode_write_mask if mode == "decode"
                                else None),
-            page_table=cache.get("pt") if mode == "decode" else None)
+            page_table=cache.get("pt") if mode == "decode" else None,
+            step_active=step_active if mode == "decode" else None)
         h = apply_stack(params["decoder"], x, cfg, self.plan, ctx,
                         cache=cache.get("stack"))
         h = apply_norm(params["final_norm"], h, cfg.norm)
         new_cache = None
         if cache:
-            step = idx_step if mode == "decode" else s
+            step = (step_active.to(cache["idx"].dtype) if mode == "decode"
+                    else s)
             new_cache = dict(cache, idx=cache["idx"] + step)
         return h, new_cache
 
@@ -113,10 +128,9 @@ class Model:
     def supports_padded_prefill(self) -> bool:
         """Trailing-pad bucketed prefill is exact: every block is causal
         attention and no rolling-window cache."""
-        cfg = self.cfg
         descs = tuple(self.plan.prefix) + tuple(self.plan.period)
         return (all(d.kind in ATTN_KINDS for d in descs)
-                and not (cfg.attn_window > 0 and cfg.sub_quadratic))
+                and not self.window_cache)
 
     @property
     def supports_paged_cache(self) -> bool:
@@ -142,6 +156,7 @@ class Model:
                                  f"and n_pages > 0 ({max_len}, "
                                  f"{page_size}, {n_pages})")
         stack = init_stack_cache(self.cfg, self.plan, batch_size, max_len,
+                                 window_cache=self.window_cache,
                                  page_size=page_size, n_pages=n_pages,
                                  device=self.device)
         idx = torch.zeros((batch_size,) if per_slot else (),
@@ -172,11 +187,13 @@ class Model:
         return self._logits(params, last), new_cache
 
     def decode_step(self, params, cache, tokens, use_ragged_kernel=False,
-                    write_mask=None, idx_step=1):
+                    write_mask=None, step_active=None):
         """One decode step.  tokens: (B,) int.  -> (logits (B,V) fp32,
         new_cache).  With a per-slot cache each row decodes at its own
         position.  ``write_mask`` ((B,) bool) gates the cache writes per
-        row.  On a CUDA device attention runs the CUDA kernels whatever
+        row; ``step_active`` (0-d bool tensor, default on) off makes the
+        step leave ``idx`` and the recurrent state as they were.  On a
+        CUDA device attention runs the CUDA kernels whatever
         ``use_ragged_kernel`` says; on the CPU it picks the kernels' plain
         versions (True) or ``attention_decode`` (False)."""
         cfg = self.cfg
@@ -188,10 +205,13 @@ class Model:
             pos = idx.reshape(1, 1).expand(b, 1).int()
         if cfg.pos == "mrope":
             pos = pos[..., None].expand(b, 1, 3)
+        if step_active is None:
+            step_active = torch.ones((), dtype=torch.bool,
+                                     device=self.device)
         h, new_cache = self.forward(
             params, {"tokens": tokens[:, None], "positions": pos},
             mode="decode", cache=cache, use_ragged_kernel=use_ragged_kernel,
-            decode_write_mask=write_mask, idx_step=idx_step)
+            decode_write_mask=write_mask, step_active=step_active)
         return self._logits(params, h[:, 0, :]), new_cache
 
     def decode_horizon(self, params, cache, state, *, horizon: int,
@@ -230,7 +250,7 @@ class Model:
             logits, cache = self.decode_step(
                 params, cache, tokens=tok, write_mask=live,
                 use_ragged_kernel=use_ragged_kernel,
-                idx_step=active.to(torch.int32))
+                step_active=active)
             nxt = logits.argmax(-1).to(torch.int32)
             rem = torch.where(live, remaining - 1, remaining)
             fin_new = live & ((rem <= 0) | (has_eos & (nxt == eos)))

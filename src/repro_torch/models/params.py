@@ -26,10 +26,12 @@ import torch
 class ParamSpec:
     shape: tuple
     axes: tuple                     # logical axis names; len == rank
-    init: str = "fan_in"            # fan_in | zeros | ones | normal
+    init: str = "fan_in"            # fan_in | zeros | ones | normal |
+    #                                 lambda_rglru
     dtype: Any = torch.float32
     scale: Optional[float] = None   # stddev override for normal inits
     fan_in: Optional[int] = None    # override for fan_in init
+    keep_fp32: bool = False         # read in fp32 at every compute dtype
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -39,15 +41,20 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
-def tree_map(f: Callable, tree, is_leaf: Callable = lambda x: False):
-    """Map ``f`` over the leaves of a tree of dicts / lists / tuples."""
+def tree_map(f: Callable, tree, is_leaf: Callable = lambda x: False,
+             *rest):
+    """Map ``f`` over the leaves of a tree of dicts / lists / tuples.
+    With ``rest`` trees of the same structure, ``f`` takes the leaf of
+    each at that place as well."""
     if is_leaf(tree):
-        return f(tree)
+        return f(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(f, v, is_leaf) for k, v in tree.items()}
+        return {k: tree_map(f, v, is_leaf, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(f, v, is_leaf) for v in tree)
-    return f(tree)
+        return type(tree)(tree_map(f, v, is_leaf, *r)
+                          for v, *r in zip(tree, *rest))
+    return f(tree, *rest)
 
 
 def tree_leaves(tree, is_leaf: Callable = lambda x: False) -> list:
@@ -77,6 +84,14 @@ def _init_one(spec: ParamSpec, generator: torch.Generator):
         return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init == "lambda_rglru":
+        # RG-LRU Lambda: a in [0.9, 0.999] -> softplus^-1 of -log(u)/2
+        # (Griffin's initialization range)
+        u = 0.9 ** 2 + (0.999 ** 2 - 0.9 ** 2) * torch.rand(
+            spec.shape, generator=generator, dtype=torch.float32,
+            device=dev)
+        val = torch.log(torch.exp(-torch.log(u) / 2) - 1.0)
+        return val.to(spec.dtype)
     if spec.init == "normal":
         std = spec.scale if spec.scale is not None else 0.02
     elif spec.init == "fan_in":

@@ -1,4 +1,4 @@
-"""Block stack, dense path: layer planning, attention blocks, KV caches.
+"""Block stack: layer planning, attention and RG-LRU blocks, caches.
 
 ``LayerPlan`` splits the per-layer block descriptors into an unrolled
 prefix and a periodic body exactly as ``repro.models.transformer`` does,
@@ -10,6 +10,9 @@ stacked tensors.
 KV caches are updated IN PLACE (the reference rebuilt them functionally):
 the prefill writes the prompt rows, and a decode step writes exactly one
 row per batch row, through views, so the stacked cache itself changes.
+Sliding-window layers of sub-quadratic models keep a ROLLING cache of
+``min(max_len, window)`` rows, position ``t`` at row ``t % window``, as
+the reference does; RG-LRU blocks keep their conv and fp32 state.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from repro_torch.models.attention import (attention_decode,
 from repro_torch.models.layers import (apply_ffn, apply_norm, apply_rope,
                                        compute_dtype, ffn_specs, norm_specs)
 from repro_torch.models.params import stack_specs, tree_map
+from repro_torch.models.recurrent import (apply_rglru_block,
+                                          init_rglru_cache, rglru_specs)
 
 ATTN_KINDS = ("attn", "attn_local")
 
@@ -94,7 +99,6 @@ def make_plan(cfg: ArchConfig, n_layers: Optional[int] = None,
 # --------------------------------------------------------------------------
 
 _LATER_SLICE = {
-    "rglru": "the recurrentgemma slice (RG-LRU blocks)",
     "mlstm": "the xLSTM slice (mLSTM / sLSTM blocks)",
     "slstm": "the xLSTM slice (mLSTM / sLSTM blocks)",
 }
@@ -118,17 +122,19 @@ def check_slice(cfg: ArchConfig, plan: LayerPlan) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {d.kind} blocks arrive with "
                 f"{_LATER_SLICE[d.kind]}")
-        if d.kind == "attn_local" and cfg.attn_window > 0:
-            raise NotImplementedError(
-                f"{cfg.name}: sliding-window attention (rolling caches) "
-                f"arrives with the recurrentgemma slice")
 
 
 def block_specs(cfg: ArchConfig, desc: LayerDesc):
-    """An attention block with a dense FFN (``check_slice`` has refused
-    every other kind)."""
-    return {"norm1": norm_specs(cfg), "attn": attn_specs(cfg),
-            "norm2": norm_specs(cfg), "ffn": ffn_specs(cfg)}
+    """An attention or RG-LRU block with a dense FFN (``check_slice`` has
+    refused every other kind)."""
+    s = {"norm1": norm_specs(cfg)}
+    if desc.kind in ATTN_KINDS:
+        s["attn"] = attn_specs(cfg)
+    else:
+        s["rglru"] = rglru_specs(cfg)
+    s["norm2"] = norm_specs(cfg)
+    s["ffn"] = ffn_specs(cfg)
+    return s
 
 
 @dataclasses.dataclass
@@ -140,33 +146,41 @@ class BlockCtx:
     attn_fn: Any
     causal: bool = True
     decode_idx: Any = None            # (B,) or scalar int32 cache index
+    window_cache: bool = False        # rolling window KV cache
     ragged_kernel: bool = False       # CPU: decode via the kernels' plain
     #                                   versions (CUDA always uses kernels)
     decode_write_mask: Any = None     # (B,) bool: rows allowed to write
     page_table: Any = None            # (B, max_pages) int32; None =
     #                                   contiguous cache
+    step_active: Any = None           # 0-d bool: off for a decode step
+    #                                   the reference's horizon would not
+    #                                   run (recurrent state stays)
 
 
-def _attn_cache_write(cache, k_new, v_new, idx, write_mask=None):
+def _attn_cache_write(cache, k_new, v_new, idx, write_mask=None,
+                      window: int = 0):
     """Write one decode step's k/v into a contiguous cache, in place.
 
     The reference rebuilt the whole cache with ``jnp.where`` every step;
-    here only row ``[b, idx[b]]`` is written.  Rows whose index ran past
-    the buffer (retired slots) or whose ``write_mask`` is off write their
-    own current value back, so nothing changes for them and the step needs
-    no host sync to find them."""
+    here only row ``[b, slot[b]]`` is written, where ``slot = idx``, or
+    ``idx % window`` for a rolling cache (``window > 0``: every row wraps,
+    retired rows past max_len too).  Rows whose slot lies past the buffer
+    (retired slots) or whose ``write_mask`` is off write their own current
+    value back, so nothing changes for them and the step needs no host
+    sync to find them."""
     smax = cache["k"].shape[1]
+    slot = idx % window if window > 0 else idx
     if idx.dim() == 0:
         # one shared position: the reference's dynamic_update_slice clamps
-        pos = idx.clamp(0, smax - 1).long().reshape(1)
+        pos = slot.clamp(0, smax - 1).long().reshape(1)
         cache["k"].index_copy_(1, pos, k_new)
         cache["v"].index_copy_(1, pos, v_new)
         return
     rows = torch.arange(idx.shape[0], device=idx.device)
-    ok = (idx >= 0) & (idx < smax)
+    ok = (slot >= 0) & (slot < smax)
     if write_mask is not None:
         ok &= write_mask
-    pos = idx.clamp(0, smax - 1).long()
+    pos = slot.clamp(0, smax - 1).long()
     for name, new in (("k", k_new), ("v", v_new)):
         buf = cache[name]
         buf[rows, pos] = torch.where(ok[:, None, None], new[:, 0],
@@ -202,7 +216,32 @@ def _attn_cache_write_paged(cache, k_new, v_new, idx, page_table,
         buf[tgt] = torch.where(ok[:, None, None], val, val[r0])
 
 
-def _self_attention(p, h, ctx: BlockCtx, cache):
+def _rolling_valid(smax: int, idx):
+    """Decode mask of a rolling cache: before the buffer wraps, rows past
+    ``idx`` are empty; once ``idx >= smax`` every row holds one of the
+    last ``smax`` positions.  (Smax,) for a scalar ``idx``, else (B,
+    Smax)."""
+    j = torch.arange(smax, device=idx.device)
+    if idx.dim() == 1:
+        return (j[None, :] <= idx[:, None]) | (idx[:, None] >= smax)
+    return (j <= idx) | (idx >= smax)
+
+
+def _prefill_rolling(buf, new, window: int):
+    """Land a prompt's k (or v) rows in a rolling buffer, in place: for
+    ``s >= window`` the last ``window`` positions, rolled so position
+    ``t`` sits at row ``t % window``; otherwise the prompt padded with
+    zeros."""
+    s = new.shape[1]
+    if s >= window:
+        idx0 = s - window
+        buf.copy_(torch.roll(new[:, idx0:], idx0 % window, dims=1))
+    else:
+        buf[:, :s] = new
+        buf[:, s:] = 0
+
+
+def _self_attention(p, h, ctx: BlockCtx, window: int, cache):
     cfg = ctx.cfg
     q = project_q(p, h, cfg)
     k, v = project_kv(p, h, cfg)
@@ -227,33 +266,55 @@ def _self_attention(p, h, ctx: BlockCtx, cache):
                 softcap=cfg.attn_logit_softcap)
     elif ctx.mode == "decode":
         idx = ctx.decode_idx
+        rolling = ctx.window_cache and window > 0
         _attn_cache_write(cache, k, v, idx,
-                          write_mask=ctx.decode_write_mask)
-        if on_card or (ctx.ragged_kernel and idx.dim() == 1):
+                          write_mask=ctx.decode_write_mask,
+                          window=window if rolling else 0)
+        if rolling:
+            # the reference's routing: rolling layers take plain decode
+            # attention under the rolling mask, never the ragged kernel
+            out = attention_decode(
+                q, cache["k"], cache["v"], idx,
+                valid_mask=_rolling_valid(cache["k"].shape[1], idx),
+                softcap=cfg.attn_logit_softcap)
+        elif window == 0 and (on_card or (ctx.ragged_kernel
+                                          and idx.dim() == 1)):
             cur = idx.int().expand(q.shape[0]).contiguous()
             out = flash_decode_attention(q, cache["k"], cache["v"], cur,
                                          softcap=cfg.attn_logit_softcap)
         else:
             out = attention_decode(q, cache["k"], cache["v"], idx,
+                                   window=window,
                                    softcap=cfg.attn_logit_softcap)
     else:
-        out = ctx.attn_fn(q, k, v, causal=ctx.causal, window=0,
+        out = ctx.attn_fn(q, k, v, causal=ctx.causal, window=window,
                           softcap=cfg.attn_logit_softcap)
         if ctx.mode == "prefill" and cache is not None:
-            # in place: the prompt rows of the (possibly longer) buffer
-            s = k.shape[1]
-            cache["k"][:, :s] = k
-            cache["v"][:, :s] = v
+            if ctx.window_cache and window > 0:
+                _prefill_rolling(cache["k"], k, window)
+                _prefill_rolling(cache["v"], v, window)
+            else:
+                # in place: the prompt rows of the (possibly longer) buffer
+                s = k.shape[1]
+                cache["k"][:, :s] = k
+                cache["v"][:, :s] = v
     return project_out(p, out, h.dtype)
 
 
 def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
-    """One attention block with a dense FFN; -> x.  ``cache`` (the
-    block's ``{"attn": {"k", "v"}}``) is updated in place."""
+    """One attention or RG-LRU block with a dense FFN; -> x.  ``cache``
+    (the block's ``{"attn": {"k", "v"}}`` or ``{"rglru": {"conv", "h"}}``)
+    is updated in place."""
     cfg = ctx.cfg
     h = apply_norm(p["norm1"], x, cfg.norm)
-    x = x + _self_attention(p["attn"], h, ctx,
-                            cache["attn"] if cache is not None else None)
+    if desc.kind in ATTN_KINDS:
+        window = cfg.attn_window if desc.kind == "attn_local" else 0
+        x = x + _self_attention(p["attn"], h, ctx, window,
+                                cache["attn"] if cache is not None else None)
+    else:
+        x = x + apply_rglru_block(
+            p["rglru"], h, cfg, cache["rglru"] if cache is not None else None,
+            step_active=ctx.step_active)
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     return x + apply_ffn(p["ffn"], h2, cfg.act)
 
@@ -270,24 +331,33 @@ def stack_specs_tree(cfg: ArchConfig, plan: LayerPlan):
 
 
 def init_stack_cache(cfg: ArchConfig, plan: LayerPlan, batch: int,
-                     max_len: int, page_size: int = 0, n_pages: int = 0,
-                     device=None):
-    """Zeroed cache for the whole stack.  ``page_size > 0`` selects the
-    paged layout: each attention layer's k/v become
-    ``(n_pages, page_size, Hkv, dh)`` physical pages with no batch axis."""
+                     max_len: int, window_cache: bool = False,
+                     page_size: int = 0, n_pages: int = 0, device=None):
+    """Zeroed cache for the whole stack.  ``window_cache`` sizes the
+    rolling caches of sliding-window layers at ``min(max_len, window)``.
+    ``page_size > 0`` selects the paged layout: each attention layer's
+    k/v become ``(n_pages, page_size, Hkv, dh)`` physical pages with no
+    batch axis."""
     dt = compute_dtype(cfg)
-    if page_size > 0:
-        shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    else:
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
 
-    def one(lead=()):
+    def one(desc: LayerDesc, lead=()):
+        if desc.kind not in ATTN_KINDS:
+            return {"rglru": init_rglru_cache(cfg, batch, lead, device)}
+        window = cfg.attn_window if desc.kind == "attn_local" else 0
+        if page_size > 0:
+            assert not (window_cache and window), \
+                "paged cache excludes rolling-window layers"
+            shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        else:
+            s = min(max_len, window) if (window_cache and window) \
+                else max_len
+            shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
         return {"attn": {
             "k": torch.zeros(lead + shape, dtype=dt, device=device),
             "v": torch.zeros(lead + shape, dtype=dt, device=device)}}
 
-    return {"prefix": [one() for _ in plan.prefix],
-            "body": [one((plan.n_periods,)) for _ in plan.period]}
+    return {"prefix": [one(d) for d in plan.prefix],
+            "body": [one(d, (plan.n_periods,)) for d in plan.period]}
 
 
 def _layer(tree, i: int):

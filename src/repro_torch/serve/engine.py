@@ -12,7 +12,10 @@ queued request may take it.  The two host-batching layers are kept:
   loop, the oracle.
 * **Bucketed batched prefill** (``prefill_buckets``): a round's
   admissions pad to a shared power-of-2 length and prefill as one batched
-  call, then land in their slots with one scatter.
+  call, then land in their slots with one scatter.  Models whose state
+  padding would corrupt (RG-LRU blocks, rolling-window caches) admit each
+  prompt alone at its exact length, and keep the contiguous cache even
+  under a paged plan, as the reference does.
 
 Eager PyTorch compiles nothing, so the reference's shared jitted
 executables (``SharedSteps``) have no counterpart: the engine calls its
@@ -62,7 +65,8 @@ def _scatter_slots(full, many, slots: Sequence[int],
     """Row ``i`` of the batched prefill cache ``many`` lands in slot
     ``slots[i]`` of ``full``, in place (the reference rebuilt every leaf
     with ``jnp.where``), and that slot's position pins to
-    ``lengths[i]``."""
+    ``lengths[i]``.  Every leaf lands whole along its batch axis: KV rows,
+    rolling windows and recurrent state alike."""
     dev = full["idx"].device
     n = len(slots)
     s_idx = torch.as_tensor(slots, dtype=torch.long, device=dev)

@@ -89,6 +89,25 @@ def test_attention_chunked(window, skip):
                   q, k, v, **kw))
 
 
+@pytest.mark.parametrize("window,skip", [(0, True), (16, True),
+                                         (0, False)])
+def test_attention_chunked_takes_short_tail_blocks(window, skip):
+    """Blocks that do not divide the length (the reference asserts they
+    do): the port's short last q and kv blocks give the reference's
+    full-score attention.  Exact-length prefill meets such lengths."""
+    q, k, v = _qkv(3, 1, 75, 75, 4, 2, 16)
+    out_t = tattn.attention_chunked(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, window=window, q_block=16, kv_block=32,
+        skip_future_blocks=skip)
+    _close(out_t, jattn.attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        window=window))
+    with pytest.raises(AssertionError):
+        jattn.attention_chunked(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), q_block=16, kv_block=32)
+
+
 def test_select_attention():
     from repro_torch.configs import get_smoke_config
     cfg = get_smoke_config("qwen2-0.5b")

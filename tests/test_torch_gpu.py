@@ -1,5 +1,5 @@
-"""The port's CUDA decode-attention kernels on the card, against their
-plain PyTorch versions.
+"""The port's CUDA kernels (decode attention, RG-LRU scan) on the card,
+against their plain PyTorch versions.
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernels are
 built with nvcc at first use and have no CPU mode): the ``cuda`` fixture
@@ -10,7 +10,9 @@ skips them where there is no card.  On a machine with one:
 Tolerances: fp32 5e-5 (the same arithmetic as the plain version, summed
 in another order); bf16 4 * 2^-8 * max|plain output|, between 2 and 4
 bf16 ulps of the largest output (both accumulate in fp32 and round once
-to bf16, so they differ by at most one ulp).
+to bf16, so they differ by at most one ulp).  The RG-LRU scan runs the
+plain version's own operations in its order, so it is held to
+1e-5 * max(1, max|plain output|) in fp32 and the same bf16 limit.
 """
 
 import dataclasses
@@ -21,6 +23,8 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.kernels.rglru import ref as rglru_ref
 from repro_torch.models import Model
 
 pytestmark = pytest.mark.gpu
@@ -38,9 +42,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _assert_within_tolerance(out, expect):
+def _assert_within_tolerance(out, expect, fp32_tol=FP32_TOL):
     tol = (BF16_REL_TOL * expect.float().abs().max().item()
-           if expect.dtype == torch.bfloat16 else FP32_TOL)
+           if expect.dtype == torch.bfloat16 else fp32_tol)
     assert (out.float() - expect.float()).abs().max().item() <= tol
 
 
@@ -190,3 +194,118 @@ def test_engine_on_card_matches_cpu(cuda, pages):
         expect = _engine_run(cfg, params, "cpu", horizon, pages, buckets)
         got = _engine_run(cfg, params, "cuda", horizon, pages, buckets)
         assert got == expect, (horizon, buckets)
+
+
+# ----- RG-LRU scan -------------------------------------------------------------
+
+def _rglru_inputs(gen, b, t, c, a_dtype, x_dtype):
+    """a near 0.999 (1 - 0.001 * U(0, 1)), so the carry grows to about
+    1000 times x."""
+    u = torch.rand((b, t, c), generator=gen, device="cuda")
+    a = (1.0 - 1e-3 * u).to(a_dtype)
+    x = _rand(gen, (b, t, c), x_dtype)
+    return a, x
+
+
+@pytest.mark.parametrize("a_dtype,x_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)], ids=["f32", "bf16", "f32_bf16"])
+@pytest.mark.parametrize("t", [1, 7, 33, 300])
+@pytest.mark.parametrize("c", [64, 200])
+def test_rglru_kernel_matches_plain(cuda, t, c, a_dtype, x_dtype):
+    gen = torch.Generator(device="cuda").manual_seed(t * c)
+    a, x = _rglru_inputs(gen, 2, t, c, a_dtype, x_dtype)
+    out = rglru_ops.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    expect = rglru_ref.rglru_scan_ref(a, x)
+    assert out.dtype == x_dtype and out.shape == x.shape
+    _assert_within_tolerance(
+        out, expect, 1e-5 * max(1.0, expect.abs().max().item()))
+
+
+def test_rglru_kernel_reads_strided_views(cuda):
+    """a as a transposed view, x as every other channel of a wider
+    tensor: read in place through their strides."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a, x = _rglru_inputs(gen, 3, 50, 96, torch.float32, torch.float32)
+    a_view = a.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.stack([x, -x], dim=-1).flatten(-2)[..., ::2]
+    assert not a_view.is_contiguous() and not wide.is_contiguous()
+    out = rglru_ops.rglru_scan(a_view, wide)
+    torch.cuda.synchronize()
+    expect = rglru_ref.rglru_scan_ref(a, x)
+    _assert_within_tolerance(out, expect,
+                             1e-5 * max(1.0, expect.abs().max().item()))
+
+
+def test_rglru_wrapper_counts_launches_and_rejects_bad_inputs(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a, x = _rglru_inputs(gen, 2, 5, 8, torch.float32, torch.float32)
+    rglru_ops.reset_launch_counts()
+    rglru_ops.rglru_scan(a, x)
+    assert rglru_ops.LAUNCHES == {"rglru_scan": 1}
+    with pytest.raises(RuntimeError):
+        rglru_ops.rglru_scan(a, x.cpu())
+    with pytest.raises(ValueError):
+        rglru_ops.rglru_scan(a, x[:, :4])
+    with pytest.raises(ValueError):
+        rglru_ops.rglru_scan(a[0], x[0])
+    with pytest.raises(ValueError):
+        rglru_ops.rglru_scan(a[:, :0], x[:, :0])
+    with pytest.raises(TypeError):
+        rglru_ops.rglru_scan(a.half(), x.half())
+    assert rglru_ops.LAUNCHES == {"rglru_scan": 1}
+
+
+def _rgemma_fp32():
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                              compute_dtype="float32")
+    return cfg, Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+
+
+def test_recurrentgemma_prefill_runs_the_scan_kernel(cuda):
+    """On the card every RG-LRU block's prefill launches the kernel once;
+    the rolling-window layer takes no decode kernel; logits and caches
+    match the CPU's."""
+    cfg, params = _rgemma_fp32()
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(1, 128, (2, 23)), dtype=torch.int32)
+    n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, dev)
+        p = m.prepare_params(params)
+        cache = m.init_cache(2, 40, per_slot=True)
+        rglru_ops.reset_launch_counts()
+        ops.reset_launch_counts()
+        logits, cache = m.prefill(p, {"tokens": toks.to(dev)}, cache)
+        assert rglru_ops.LAUNCHES["rglru_scan"] == (
+            n_rglru if dev == "cuda" else 0)
+        step, cache = m.decode_step(p, cache, logits.argmax(-1))
+        assert sum(ops.LAUNCHES.values()) == 0
+        got[dev] = (logits.cpu(), step.cpu())
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("horizon", [1, 4])
+def test_recurrentgemma_engine_on_card_matches_cpu(cuda, horizon):
+    """Exact-length admission, rolling cache and recurrent state on the
+    card serve the CPU's tokens, admission order and retirement steps at
+    fp32, with prompts past the window (16)."""
+    from repro_torch.core.plan import EndpointPlan
+    from repro_torch.serve.engine import ContinuousEngine, Request
+    cfg, params = _rgemma_fp32()
+    runs = []
+    for dev in ("cpu", "cuda"):
+        eng = ContinuousEngine(cfg, params, EndpointPlan(
+            n_slots=3, max_len=48, decode_horizon=horizon,
+            executor="continuous"), device=dev)
+        rng = np.random.default_rng(6)
+        for rid in range(8):
+            prompt = rng.integers(1, 128, size=int(rng.integers(3, 40)))
+            eng.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
+                               max_new_tokens=int(rng.integers(1, 20))))
+        done = {r.rid: r.output for r in eng.run()}
+        runs.append((done, eng.admit_order, eng.retire_steps))
+    assert runs[0] == runs[1]

@@ -85,7 +85,8 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     out = capsys.readouterr().out
     assert "served 3 requests, 9 tokens" in out
     assert "page pool: level 4" in out
-    assert "kernel launches: {'ragged_decode': 0, 'paged_decode': 0}" in out
+    assert ("kernel launches: {'ragged_decode': 0, 'paged_decode': 0, "
+            "'rglru_scan': 0}") in out
 
 
 def test_wrappers_route_cpu_tensors_to_the_plain_versions():
@@ -103,6 +104,44 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
         ops.paged_flash_decode_attention(q, pages, pages, pt, cur),
         ref.paged_decode_ref(q, pages, pages, pt, cur))
     assert ops.LAUNCHES == {"ragged_decode": 0, "paged_decode": 0}
+
+
+def test_launcher_serves_recurrentgemma_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", "recurrentgemma-2b", "--smoke", "--device",
+                   "cpu", "--pages", "4", "--max-len", "48", "--requests",
+                   "3", "--prompt-len", "12", "--max-new", "4",
+                   "--decode-horizon", "4", "--mixed-lengths"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out
+    assert "buckets off" in out and "page pool" not in out
+    assert ("kernel launches: {'ragged_decode': 0, 'paged_decode': 0, "
+            "'rglru_scan': 0}") in out
+
+
+def test_rglru_wrapper_routes_cpu_tensors_to_the_plain_version():
+    from repro_torch.kernels.rglru import ops, ref
+    gen = torch.Generator().manual_seed(1)
+    a = torch.rand((2, 9, 5), generator=gen)
+    x = torch.randn((2, 9, 5), generator=gen)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.rglru_scan(a, x), ref.rglru_scan_ref(a, x))
+    assert ops.LAUNCHES == {"rglru_scan": 0}
+
+
+def test_kernel_sources_are_found_per_package():
+    """Every kernel's source sits in its own package's csrc/, and the
+    library name hashes it; nothing is compiled on import."""
+    from repro_torch.kernels import build
+    assert set(build.PACKAGES) == set(build.SIGNATURES)
+    for name in build.PACKAGES:
+        src = build.csrc(name) / f"{name}.cu"
+        assert src.is_file(), src
+        assert src.parent.parent.name == build.PACKAGES[name]
+        assert src.read_text().count(f'extern "C" int {name}(') == 1
+        assert build._library_path(name).name.startswith(f"lib{name}-")
+    assert build.csrc("rglru_scan").parent.name == "rglru"
+    assert not build._loaded
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_repo(tmp_path):

@@ -18,7 +18,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.models import params as P
 from repro_torch.models.model import Model
 
-ARCHS = ["qwen2-0.5b", "smollm-360m"]
+ARCHS = ["qwen2-0.5b", "smollm-360m", "recurrentgemma-2b"]
 
 
 def _flat_specs(tree, is_leaf):
@@ -99,7 +99,56 @@ def test_own_init_shapes_and_distributions():
 
 
 def test_later_slice_blocks_raise():
-    for arch in ("recurrentgemma-2b", "xlstm-1.3b", "granite-moe-1b-a400m",
+    for arch in ("xlstm-1.3b", "granite-moe-1b-a400m",
                  "seamless-m4t-large-v2", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError):
             Model(get_smoke_config(arch), device="cpu")
+
+
+def test_lambda_rglru_init_draws_griffins_range():
+    """Lambda = softplus^-1(-log(u)/2), u ~ U[0.9^2, 0.999^2]: the decay
+    a = exp(-softplus(Lambda)) at r = 1/8 lies in [0.9, 0.999]; the port
+    draws it from its torch.Generator, fp32, reproducibly."""
+    spec = P.ParamSpec((4096,), ("lru",), init="lambda_rglru")
+    lam = P.materialize({"lam": spec}, torch.Generator().manual_seed(0),
+                        "cpu")["lam"]
+    assert lam.dtype == torch.float32
+    a = torch.exp(-torch.nn.functional.softplus(lam.double()))
+    assert 0.9 - 1e-9 <= a.min().item() and a.max().item() <= 0.999 + 1e-9
+    assert a.min().item() < 0.91 and a.max().item() > 0.998
+    again = P.materialize({"lam": spec}, torch.Generator().manual_seed(0),
+                          "cpu")["lam"]
+    assert torch.equal(lam, again)
+
+
+def test_tree_map_over_several_trees():
+    """With more trees of the same structure, ``f`` takes the leaf of each
+    at every place (what ``Model.prepare_params`` maps specs and weights
+    with); the first tree's containers and key order are kept."""
+    specs = {"b": [1, (2, 3)], "a": {"x": 4}}
+    vals = {"a": {"x": 40}, "b": [10, (20, 30)]}
+    out = P.tree_map(lambda s, v: s + v, specs, lambda x: False, vals)
+    assert out == {"b": [11, (22, 33)], "a": {"x": 44}}
+    assert list(out) == ["b", "a"] and isinstance(out["b"][1], tuple)
+
+
+def test_prepare_params_keeps_fp32_only_where_the_spec_says():
+    """At bf16 compute every leaf is bf16 on the device, except leaves
+    whose spec says ``keep_fp32``: those keep their fp32 values bit for
+    bit."""
+    cfg = dataclasses.replace(get_smoke_config("recurrentgemma-2b"),
+                              compute_dtype="bfloat16")
+    m = Model(cfg, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    prepared = m.prepare_params(params)
+    specs = P.tree_leaves(m.param_specs(), P.is_spec)
+    before = P.tree_leaves(params, torch.is_tensor)
+    after = P.tree_leaves(prepared, torch.is_tensor)
+    assert len(specs) == len(before) == len(after)
+    # five gate leaves in each of two prefix blocks and the stacked body
+    assert sum(s.keep_fp32 for s in specs) == 5 * 3
+    for spec, a, b in zip(specs, before, after):
+        if spec.keep_fp32:
+            assert b.dtype == torch.float32 and torch.equal(a, b)
+        else:
+            assert b.dtype == torch.bfloat16
