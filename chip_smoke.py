@@ -6,42 +6,54 @@
 Phases (any failure exits non-zero, without the final result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three kernels (two decode-attention kernels and the RG-LRU
-   scan) from their packages' ``csrc/`` under ``src/repro_torch/kernels``
-   with nvcc for sm_90a, one nvcc each, all started together, timed,
-   with ptxas' register and memory report;
+2. build the four kernels (two decode-attention kernels, the prefill
+   flash-attention kernel and the RG-LRU scan) from their packages'
+   ``csrc/`` under ``src/repro_torch/kernels`` with nvcc for sm_90a, one
+   nvcc each, all started together, timed, with ptxas' register and
+   memory report;
 3. each decode kernel against its plain PyTorch version on the card, at
    qwen2-0.5b's decode shapes (B=8, Hkv=2, G=7, dh=64, Smax=1024), fp32
    and bf16, softcap 0 and 30, edge lengths, and for the paged kernel a
    fragmented page table with sentinels over a tight pool; then the
    RG-LRU scan against its plain version at T in {1, 7, 2048, 3001}, C in
    {64, 2560}, fp32 and bf16, with ``a`` near 0.999 so the carry grows,
-   and on strided views;
+   and on strided views; then the flash kernel against its plain version
+   over the reference's sweep (dh 8 to 256, G 1 to 10, windows 0, 16, 64
+   and 2048, non-causal with Sk != Sq, softcap 10), at the lengths 1, 7,
+   1023, 1024, 1500 and 3001 and on strided views, fp32 and bf16;
 4. qwen2-0.5b at full width (24 layers, random weights from
    ``torch.Generator`` seed 0) served through ``repro_torch.serve.connect``
    with a contiguous and with a paged (pages=4) cache: 16 requests, every
-   one must return its tokens, and each kernel's launch count must equal
-   layers x executed decode steps of its run; then, contiguous, 8 of the
-   prompts with budgets of 1 to 64 tokens on one ordered stream, served
+   one must return its tokens, each decode kernel's launch count must
+   equal layers x executed decode steps of its run and the flash
+   kernel's layers x prefills; then, contiguous, 8 of the prompts with
+   budgets of 1 to 64 tokens on one ordered stream, served
    with the engine's cut of each horizon at the last live step and
    without it (every horizon runs K steps): the same tokens, and steps
    launched against executed;
-5. the qwen2-0.5b smoke config at fp32 served on the card (kernels) and
-   on the CPU (plain versions): the tokens must agree;
-6. recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks and 8
+5. qwen2-0.5b at full width with long prompts (1023 to 4000 tokens, pow2
+   buckets, max_len 4096): 8 requests of 32 tokens at once, contiguous
+   and paged, which must agree on every token, with the flash kernel
+   launched layers x prefills; then the same prompts one at a time on
+   one stream, so each prefills alone in its bucket (1024, 2048, 4096);
+6. the qwen2-0.5b smoke config at fp32 served on the card (kernels) and
+   on the CPU (plain versions, chunked attention for the round with a
+   1100-token prompt): the tokens must agree;
+7. recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks and 8
    local-attention blocks with window 2048, random weights from a
    ``torch.Generator`` seed 0) served through ``connect``: 8 slots,
    max_len 4096, horizon 8, 12 requests of 64 new tokens with prompts
    from 64 to 3500 tokens (four prefill past the window, four cross
    position 2048 while decoding, four stay inside it); every request
-   must return its 64 tokens, the RG-LRU kernel must launch 18 times per
-   prefill and the decode kernels never (rolling layers take plain
-   decode attention, as in the reference);
-7. the recurrentgemma smoke config at fp32 served on the card and on the
+   must return its 64 tokens, the RG-LRU kernel must launch 18 times and
+   the flash kernel 8 times per prefill, and the decode kernels never
+   (rolling layers take plain decode attention, as in the reference);
+8. the recurrentgemma smoke config at fp32 served on the card and on the
    CPU, prompts past its window of 16: the tokens must agree;
-8. per kernel: its error against the plain version at the main path's
-   shapes (held to the tolerance), time per call, its bound, the plain
-   version's time and, for decode attention,
+9. per kernel: its error against the plain version at the main path's
+   shapes (the flash kernel at both models' prefill shapes; held to the
+   tolerance), time per call, its bound, the plain
+   version's time and, for attention,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls;
    no PyTorch call computes a linear recurrence), as one JSON line.
 
@@ -64,6 +76,7 @@ ROOT = Path(__file__).resolve().parent
 
 MEM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12        # H100 SXM fp32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 FP32_TOL = 5e-5
 #: bf16 limit per case, times max|plain output|: between 2 and 4 bf16 ulps
 #: of the largest output.  Kernel and plain version both accumulate in
@@ -75,6 +88,11 @@ N_REQUESTS, MAX_NEW, N_SLOTS, HORIZON = 16, 64, 8, 8
 RG_MAX_LEN = 4096
 RG_PROMPTS = (64, 300, 1000, 1500, 2000, 2000, 2030, 2040, 2100, 2500,
               3000, 3500)
+#: qwen2-0.5b's long-prompt phase: cache length, prompt lengths (on both
+#: sides of 1024 and of the pow2 buckets), new tokens per request
+LONG_MAX_LEN = 4096
+LONG_PROMPTS = (1023, 1024, 1025, 1500, 2047, 2049, 3000, 4000)
+LONG_MAX_NEW = 32
 #: RG-LRU scan limit in fp32, times max(1, max|plain output|): the kernel
 #: repeats the plain version's operations in its order
 RGLRU_FP32_REL_TOL = 1e-5
@@ -91,6 +109,12 @@ KERNELS = {
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "paged_decode.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:227",
+    },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:279",
     },
     "rglru_scan": {
         "route": "cuda",
@@ -128,11 +152,17 @@ def build_kernels():
             if "Compiling entry" in line or "Used" in line:
                 log(f"    {line.strip()}")
         lib = build.load(name)
-        if build.PACKAGES[name] == "flash_attention":
+        if name in ("ragged_decode", "paged_decode"):
             lib.decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.decode_smem_bytes.restype = ctypes.c_longlong
             log(f"    dynamic shared memory per block at G={G}, dh={DH}: "
                 f"{lib.decode_smem_bytes(G, DH)} bytes")
+        elif name == "flash_attention":
+            lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+            lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+            log("    dynamic shared memory per block at dh=64 / dh=256: "
+                f"{lib.flash_attention_smem_bytes(64)} / "
+                f"{lib.flash_attention_smem_bytes(256)} bytes")
 
 
 # ----- phase 3 ---------------------------------------------------------------
@@ -276,6 +306,74 @@ def check_rglru() -> None:
                              f"{bad}")
 
 
+#: the flash kernel's sweep: (B, Sq, Sk, Hq, Hkv, dh, causal, window,
+#: softcap); the reference's test shapes, then qwen2-0.5b's heads (G=7,
+#: dh 64) and recurrentgemma-2b's (G=10, dh 256, window 2048) at the
+#: main paths' lengths
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 16, True, 0, 0.0),
+    (2, 128, 128, 4, 2, 32, True, 0, 0.0),
+    (1, 256, 256, 6, 2, 64, True, 0, 0.0),
+    (2, 64, 64, 5, 1, 16, True, 0, 0.0),
+    (1, 128, 128, 8, 8, 8, True, 0, 0.0),
+    (1, 128, 128, 2, 1, 16, True, 16, 0.0),
+    (1, 128, 128, 2, 1, 16, True, 64, 0.0),
+    (1, 64, 128, 2, 2, 16, False, 0, 0.0),
+    (1, 128, 128, 2, 2, 16, True, 0, 10.0),
+    (1, 1, 1, 14, 2, 64, True, 0, 0.0),
+    (2, 7, 7, 14, 2, 64, True, 0, 0.0),
+    (1, 1023, 1023, 14, 2, 64, True, 0, 0.0),
+    (2, 1024, 1024, 14, 2, 64, True, 0, 0.0),
+    (1, 1500, 1500, 14, 2, 64, True, 0, 0.0),
+    (1, 3001, 3001, 14, 2, 64, True, 0, 0.0),
+    (1, 7, 7, 10, 1, 256, True, 2048, 0.0),
+    (1, 1500, 1500, 10, 1, 256, True, 2048, 0.0),
+    (1, 3001, 3001, 10, 1, 256, True, 2048, 0.0),
+    (1, 200, 333, 10, 1, 256, False, 0, 0.0),
+]
+
+
+def check_flash() -> None:
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, bad = {}, []
+    cases = [(dt, c) for dt in (torch.float32, torch.bfloat16)
+             for c in FLASH_CASES]
+    cases += [("strided", (1, 1500, 1500, 14, 2, 64, True, 0, 0.0)),
+              ("strided", (1, 3001, 3001, 10, 1, 256, True, 2048, 0.0))]
+    for dtype, (b, sq, sk, hq, hkv, dh, causal, window, softcap) in cases:
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        if dtype == "strided":
+            # q, k and v as views of one fused projection's output
+            qkv = _rand(gen, (b, sq, hq + 2 * hkv, dh), torch.bfloat16)
+            q, k, v = qkv.split((hq, hkv, hkv), dim=2)
+            out = ops.flash_attention(q, k, v, **kw)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        else:
+            q = _rand(gen, (b, sq, hq, dh), dtype)
+            k = _rand(gen, (b, sk, hkv, dh), dtype)
+            v = _rand(gen, (b, sk, hkv, dh), dtype)
+            out = ops.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        expect = ref.flash_attention_ref(q, k, v, **kw)
+        err = (out.float() - expect.float()).abs().max().item()
+        tol = tolerance(expect)
+        key = str(expect.dtype) if dtype != "strided" else "strided bf16"
+        worst[key] = max(worst.get(key, 0.0), err)
+        if not err <= tol or out.shape != q.shape:
+            bad.append((str(dtype), b, sq, sk, hq, hkv, dh, causal, window,
+                        softcap, err, tol))
+    for key, err in worst.items():
+        log(f"flash_attention {key}: largest max abs err {err:.3e} over "
+            f"the sweep")
+    log(f"flash_attention: {len(cases)} cases (fp32 limit {FP32_TOL}, "
+        f"bf16 limit {BF16_REL_TOL:.4f} x max|plain| per case)")
+    if bad:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version: {bad}")
+
+
 # ----- phase 4 ---------------------------------------------------------------
 
 def _prompts(vocab, seed=0):
@@ -304,6 +402,17 @@ def read_counts() -> dict:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.rglru import ops as rglru_ops
     return dict(ops.LAUNCHES, **rglru_ops.LAUNCHES)
+
+
+def fresh_peak() -> float:
+    """Collect what earlier runs left in reference cycles (an engine that
+    served one stream lives until a collection, with its weights and
+    caches) and restart the card's peak-memory count; -> GiB live now."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
 
 
 def serve_once(cfg, params, prompts, pages: bool, device: str,
@@ -366,12 +475,13 @@ def serve_full_width(card: str):
     runs, bad = {}, []
     for pages in (False, True):
         name = "paged_decode" if pages else "ragged_decode"
-        torch.cuda.reset_peak_memory_stats()
+        fresh_peak()
         outs, eng, counts, dec_s, wall = serve_once(cfg, params, prompts,
                                                     pages, "cuda")
         steps = eng.stats["decode_steps"]
         expect = {k: 0 for k in counts}
         expect[name] = cfg.n_layers * steps
+        expect["flash_attention"] = cfg.n_layers * eng.stats["prefills"]
         layout = "paged (pages=4, page size %d)" % eng.page_size \
             if pages else "contiguous"
         ok_tokens = all(len(o) == MAX_NEW and all(0 <= t < cfg.vocab
@@ -452,7 +562,69 @@ def horizon_cap(cfg, params, prompts, card: str) -> None:
 
 # ----- phase 5 ---------------------------------------------------------------
 
+def serve_long_prompts(cfg, params, card: str):
+    """Full-width qwen2-0.5b on prompts of 1023 to 4000 tokens: all 8 at
+    once (one admission round, one batched prefill in the bucket of the
+    longest), contiguous and paged, then one at a time on one stream
+    (each prefills alone in its own bucket).  Every prefill's attention
+    runs the flash kernel, every decode step a decode kernel."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in LONG_PROMPTS]
+    max_new = [LONG_MAX_NEW] * len(prompts)
+    runs, bad = {}, []
+    for name, pages, one_stream in (("contiguous", False, False),
+                                    ("paged", True, False),
+                                    ("one stream", False, True)):
+        live = fresh_peak()
+        outs, eng, counts, dec_s, wall = serve_once(
+            cfg, params, prompts, pages, "cuda", max_new,
+            one_stream=one_stream, max_len=LONG_MAX_LEN)
+        prefills, steps = eng.stats["prefills"], eng.stats["decode_steps"]
+        expect = {k: 0 for k in counts}
+        expect["paged_decode" if pages else "ragged_decode"] = \
+            cfg.n_layers * steps
+        expect["flash_attention"] = cfg.n_layers * prefills
+        tok = eng.stats["busy_slot_steps"]
+        log(f"long prompts {name} (buckets {list(eng.prefill_buckets)}): "
+            f"{len(outs)} requests, {sum(map(len, outs))} tokens, "
+            f"{prefills} prefills, {steps} decode steps; launches {counts} "
+            f"(expected {expect})")
+        log(f"  wall {wall:.2f}s, decode {tok / dec_s:.1f} tok/s ({tok} "
+            f"tokens in {dec_s:.3f}s); max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({live:.2f} "
+            f"GiB live before the run); on {card}")
+        if not all(len(o) == LONG_MAX_NEW and all(0 <= t < cfg.vocab
+                                                  for t in o) for o in outs):
+            bad.append(f"{name}: a request came back without its "
+                       f"{LONG_MAX_NEW} tokens")
+        if counts != expect:
+            bad.append(f"{name}: launches {counts} != {expect}")
+        runs[name] = {"outs": outs, "launches": counts["flash_attention"],
+                      "tok_s": tok / dec_s}
+        del eng
+    total = sum(map(len, runs["contiguous"]["outs"]))
+    for other in ("paged", "one stream"):
+        same = sum(x == y for p, q in zip(runs["contiguous"]["outs"],
+                                          runs[other]["outs"])
+                   for x, y in zip(p, q))
+        log(f"contiguous vs {other}: {same}/{total} tokens agree")
+    if runs["contiguous"]["outs"] != runs["paged"]["outs"]:
+        bad.append("contiguous and paged serve different tokens")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return runs
+
+
+# ----- phase 6 ---------------------------------------------------------------
+
 def smoke_card_vs_cpu() -> None:
+    """The smoke config at fp32 on the card and on the CPU; the first
+    round holds a prompt of 1100 tokens (bucket 2048), so the CPU runs
+    chunked attention where the card runs the flash kernel."""
+    import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
@@ -460,25 +632,29 @@ def smoke_card_vs_cpu() -> None:
                               compute_dtype="float32")
     params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
     prompts = _prompts(cfg.vocab, seed=1)
+    prompts[0] = np.random.default_rng(1).integers(
+        1, cfg.vocab, size=1100).astype(np.int32)
     bad = []
     for pages in (False, True):
         card, eng, counts, _, _ = serve_once(cfg, params, prompts, pages,
-                                             "cuda")
+                                             "cuda", max_len=2048)
         cpu, _, cpu_counts, _, _ = serve_once(cfg, params, prompts, pages,
-                                              "cpu")
+                                              "cpu", max_len=2048)
         same = sum(x == y for p, q in zip(card, cpu) for x, y in zip(p, q))
         total = sum(len(p) for p in cpu)
-        log(f"smoke fp32 {'paged' if pages else 'contiguous'}: card "
+        log(f"smoke fp32 {'paged' if pages else 'contiguous'} (prompts "
+            f"{min(map(len, prompts))} to {max(map(len, prompts))}): card "
             f"(kernels, launches {counts}) vs CPU (plain versions, "
             f"launches {cpu_counts}): {same}/{total} tokens agree")
-        if card != cpu or sum(cpu_counts.values()) or \
-                not sum(counts.values()):
+        if card != cpu or sum(cpu_counts.values()) or counts[
+                "flash_attention"] != cfg.n_layers * eng.stats["prefills"]:
             bad.append("paged" if pages else "contiguous")
     if bad:
-        raise AssertionError(f"card and CPU tokens differ: {bad}")
+        raise AssertionError(f"card and CPU tokens differ or the flash "
+                             f"kernel did not run: {bad}")
 
 
-# ----- phase 6 ---------------------------------------------------------------
+# ----- phase 7 ---------------------------------------------------------------
 
 def _rg_prompts(vocab, lengths, seed):
     import numpy as np
@@ -489,13 +665,14 @@ def _rg_prompts(vocab, lengths, seed):
 
 def serve_recurrentgemma(card: str):
     """Full-width recurrentgemma-2b through connect: exact-length
-    admission, rolling caches, 18 RG-LRU prefills per request on the
-    kernel, no decode-kernel launch."""
+    admission, rolling caches, 18 RG-LRU and 8 flash-attention prefills
+    per request on the kernels, no decode-kernel launch."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     cfg = get_config("recurrentgemma-2b")
     n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    n_attn = cfg.n_layers - n_rglru
     t0 = time.perf_counter()
     params = Model(cfg, "cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
@@ -507,13 +684,14 @@ def serve_recurrentgemma(card: str):
         f"vocab {cfg.vocab}, drawn on the card in "
         f"{time.perf_counter() - t0:.1f}s")
     prompts = _rg_prompts(cfg.vocab, RG_PROMPTS, seed=3)
-    torch.cuda.reset_peak_memory_stats()
+    fresh_peak()
     outs, eng, counts, dec_s, wall = serve_once(
         cfg, params, prompts, False, "cuda", max_len=RG_MAX_LEN)
     prefills = eng.stats["prefills"]
     steps = eng.stats["decode_steps"]
     expect = {k: 0 for k in counts}
     expect["rglru_scan"] = n_rglru * prefills
+    expect["flash_attention"] = n_attn * prefills
     tok = eng.stats["busy_slot_steps"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"serve recurrentgemma-2b (contiguous rolling cache, buckets "
@@ -547,10 +725,11 @@ def serve_recurrentgemma(card: str):
     if bad:
         raise AssertionError("; ".join(bad))
     return {"launches": counts["rglru_scan"], "tok_s": tok / dec_s,
-            "wall": wall, "prefills": prefills}
+            "wall": wall, "prefills": prefills,
+            "flash_launches": counts["flash_attention"]}
 
 
-# ----- phase 7 ---------------------------------------------------------------
+# ----- phase 8 ---------------------------------------------------------------
 
 def smoke_recurrentgemma_card_vs_cpu() -> None:
     import numpy as np
@@ -574,13 +753,16 @@ def smoke_recurrentgemma_card_vs_cpu() -> None:
         f"{sorted(int(n) for n in lengths)}): card (launches {counts}) vs "
         f"CPU (plain versions, launches {cpu_counts}): {same}/{total} "
         f"tokens agree")
+    n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    prefills = eng.stats["prefills"]
     if card != cpu or sum(cpu_counts.values()) or \
-            counts["rglru_scan"] != 4 * eng.stats["prefills"]:
+            counts["rglru_scan"] != n_rglru * prefills or \
+            counts["flash_attention"] != (cfg.n_layers - n_rglru) * prefills:
         raise AssertionError("recurrentgemma smoke: card and CPU differ or "
-                             "the RG-LRU kernel did not run")
+                             "the RG-LRU or flash kernel did not run")
 
 
-# ----- phase 8 ---------------------------------------------------------------
+# ----- phase 9 ---------------------------------------------------------------
 
 def _time_ms(fn, n_layers, iters=10):
     """Mean ms per call over ``iters`` sweeps of ``n_layers`` calls, each
@@ -730,6 +912,86 @@ def time_rglru(launches: int):
     return entry
 
 
+#: the flash kernel's timed shapes, one per main path, bf16, causal:
+#: (model, S, Hq, Hkv, dh, window)
+FLASH_TIMED = (("qwen2-0.5b", 4096, 14, 2, 64, 0),
+               ("recurrentgemma-2b", 3500, 10, 1, 256, 2048))
+
+
+def time_flash(launches: dict):
+    """The flash kernel at each main path's prefill shape (``FLASH_TIMED``,
+    B=1, four inputs in turn), against its plain version and
+    ``scaled_dot_product_attention`` (``is_causal``, or a boolean mask
+    for the window).  ``launches``: the kernel's count on each model's
+    main-path run.  The entry's own numbers are qwen2-0.5b's; ``cases``
+    holds both shapes'."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dt, n_inputs = torch.bfloat16, 4
+    cases = []
+    for model, s, hq, hkv, dh, window in FLASH_TIMED:
+        inputs = [(_rand(gen, (1, s, hq, dh), dt),
+                   _rand(gen, (1, s, hkv, dh), dt),
+                   _rand(gen, (1, s, hkv, dh), dt)) for _ in range(n_inputs)]
+        kw = dict(causal=True, window=window)
+        pos = torch.arange(s, device="cuda")
+        allowed = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+
+        def kern(i):
+            return ops.flash_attention(*inputs[i], **kw)
+
+        def plain(i):
+            return ref.flash_attention_ref(*inputs[i], **kw)
+
+        def sdpa(i):
+            q, k, v = (t.transpose(1, 2) for t in inputs[i])
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=allowed if window else None,
+                is_causal=not window, enable_gqa=True).transpose(1, 2)
+
+        err, tol = 0.0, float("inf")
+        for i in range(n_inputs):
+            expect = plain(i)
+            e = (kern(i).float() - expect.float()).abs().max().item()
+            err, tol = max(err, e), min(tol, tolerance(expect))
+            if not e <= tolerance(expect):
+                raise AssertionError(f"flash_attention at {model}'s shape: "
+                                     f"err {e} > {tolerance(expect)}")
+        lib_err = (sdpa(0).float() - plain(0).float()).abs().max().item()
+        ms = _time_ms(kern, n_inputs)
+        plain_ms = _time_ms(plain, n_inputs, iters=2)
+        lib_ms = _time_ms(sdpa, n_inputs)
+        pairs = sum(min(t + 1, window) if window else t + 1
+                    for t in range(s))
+        flops = 4 * pairs * dh * hq
+        io_bytes = 2 * (s * hq * dh + s * hkv * dh) * dt.itemsize
+        t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        case = dict(model=model, shape=f"(1, {s}, {hq}/{hkv}, {dh}) causal"
+                    f"{f' window {window}' if window else ''} bf16",
+                    launches=launches[model], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=lib_ms)
+        cases.append(case)
+        log(f"flash_attention at {case['shape']} ({model}): {ms * 1e3:.1f} "
+            f"us/call, bound {case['bound_ms'] * 1e3:.1f} us "
+            f"({case['bound_by']}: {flops / 1e9:.2f} GFLOP over "
+            f"{pairs} unmasked pairs at the bf16 tensor-core peak; "
+            f"{flops / FP32_FLOPS_PER_S * 1e6:.0f} us at the fp32 FMA peak; "
+            f"{io_bytes / 1e6:.1f} MB), plain {plain_ms * 1e3:.1f} us, SDPA "
+            f"{lib_ms * 1e3:.1f} us (max abs err vs plain {lib_err:.3e}), "
+            f"max abs err {err:.3e} (tolerance {tol:.3e} or more); "
+            f"launches on the main path {launches[model]}")
+        del inputs
+    top = {k: v for k, v in cases[0].items() if k not in ("model", "shape")}
+    return dict(name="flash_attention", **KERNELS["flash_attention"], **top,
+                cases=cases)
+
+
 def main() -> int:
     try:
         import torch
@@ -770,30 +1032,40 @@ def main() -> int:
         return 1
     phase("kernels vs plain versions", check_kernels)
     phase("rglru_scan vs plain version", check_rglru)
+    phase("flash_attention vs plain version", check_flash)
+    long = None
     served = phase("serve qwen2-0.5b at full width", serve_full_width, card)
     if served is not None:
         phase("horizon cut vs uncut", horizon_cap, *served[2:], served[1],
               card)
+        long = phase("serve qwen2-0.5b long prompts at full width",
+                     serve_long_prompts, *served[2:], card)
     phase("smoke config at fp32: card vs CPU", smoke_card_vs_cpu)
     rg = phase("serve recurrentgemma-2b at full width",
                serve_recurrentgemma, card)
     phase("recurrentgemma smoke config at fp32: card vs CPU",
           smoke_recurrentgemma_card_vs_cpu)
-    kernels = rg_kernel = None
+    kernels = rg_kernel = flash = None
     if served is not None:
         runs, prompts = served[:2]
         kernels = phase("kernel timing", time_kernels, runs,
                         [len(p) for p in prompts])
+    if long is not None and rg is not None:
+        flash = phase("flash_attention timing", time_flash, {
+            "qwen2-0.5b": long["contiguous"]["launches"],
+            "recurrentgemma-2b": rg["flash_launches"]})
     if rg is not None:
         rg_kernel = phase("rglru_scan timing", time_rglru, rg["launches"])
-    if failed or kernels is None or rg_kernel is None:
+    if failed or kernels is None or rg_kernel is None or flash is None:
         log(f"FAILED phases: {failed}")
         return 1
     log(f"decode tok/s: qwen2-0.5b contiguous "
         f"{served[0]['ragged_decode']['tok_s']:.1f}, paged "
-        f"{served[0]['paged_decode']['tok_s']:.1f}; recurrentgemma-2b "
+        f"{served[0]['paged_decode']['tok_s']:.1f}, long prompts contiguous "
+        f"{long['contiguous']['tok_s']:.1f}, paged "
+        f"{long['paged']['tok_s']:.1f}; recurrentgemma-2b "
         f"{rg['tok_s']:.1f}; on {card}")
-    print(json.dumps({"kernels": kernels + [rg_kernel]}))
+    print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -33,6 +33,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 PACKAGES = {
     "ragged_decode": "flash_attention",
     "paged_decode": "flash_attention",
+    "flash_attention": "flash_attention",
     "rglru_scan": "rglru",
 }
 #: kernel name -> C entry point's argument types (see its source)
@@ -41,6 +42,9 @@ SIGNATURES = {
                       _L, _L, _L, _L, _L, _L, _F, _F, _I, _P],
     "paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _L, _L, _L, _L, _L, _L, _F, _F, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _F,
+                        _I, _I, _I, _P],
     "rglru_scan": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L,
                    _L, _L, _L, _I, _I, _P],
 }

@@ -1,2 +1,2 @@
-"""Decode attention: CUDA kernels (``csrc/``), wrappers (``ops``) and
-their plain PyTorch versions (``ref``)."""
+"""Prefill and decode attention: CUDA kernels (``csrc/``), wrappers
+(``ops``) and their plain PyTorch versions (``ref``)."""

@@ -1,11 +1,13 @@
-"""Decode-attention kernel wrappers: (B, S, H, dh) native cache layouts.
+"""Attention kernel wrappers: (B, S, H, dh) layouts.
 
-``flash_decode_attention`` and ``paged_flash_decode_attention`` keep the
-reference's names and signatures (``repro.kernels.flash_attention.ops``).
-For a CUDA tensor each builds (at first use) and launches its hand-written
-CUDA kernel on the current stream, or raises: there is no fallback.  For
-a CPU tensor each runs its plain PyTorch version (``ref.py``).  Each
-wrapper counts its kernel launches in ``LAUNCHES``.
+``flash_attention`` (prefill), ``flash_decode_attention`` and
+``paged_flash_decode_attention`` keep the reference's names and
+signatures (``repro.kernels.flash_attention.ops``, without
+``interpret``).  For a CUDA tensor each builds (at first use) and
+launches its hand-written CUDA kernel on the current stream, or raises:
+there is no fallback.  For a CPU tensor each runs its plain PyTorch
+version (``ref.py``).  Each wrapper counts its kernel launches in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -13,15 +15,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import (paged_decode_ref,
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     paged_decode_ref,
                                                      ragged_decode_ref)
 
 #: kernel launches since the last ``reset_launch_counts()``; plain-version
 #: calls on CPU tensors do not count
-LAUNCHES = {"ragged_decode": 0, "paged_decode": 0}
+LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_G_DH = 4096      # g * dh floats per block in shared memory (x2)
+_MAX_DH = 256         # the prefill kernel's largest head_dim tile
+_MAX_ROWS = 65535     # B * Hq: the prefill kernel's grid.y
 
 
 def reset_launch_counts() -> None:
@@ -124,4 +129,64 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "paged_decode", code)
     LAUNCHES["paged_decode"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_block: int = 512,
+                    kv_block: int = 1024):
+    """Prefill attention.  q: (B, Sq, Hq, dh); k/v: (B, Sk, Hkv, dh) ->
+    (B, Sq, Hq, dh) in q's dtype, contiguous.  Any Sq, Sk >= 1; q, k and
+    v may be strided views with a contiguous head_dim.  ``q_block`` and
+    ``kv_block`` are the reference's tiling; the result does not depend
+    on them, and the kernel keeps its own tiles.  Forward only: on the
+    card an input that requires grad raises."""
+    del q_block, kv_block
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: tensors on {q.device} have no "
+                           f"kernel; the plain version serves only CPU "
+                           f"tensors")
+    for t, what in ((k, "k"), (v, "v")):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {what} on {t.device}, q on "
+                             f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
+                        f"(float32, bfloat16)")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q/k/v dtypes differ ({q.dtype}, "
+                        f"{k.dtype}, {v.dtype})")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise RuntimeError("flash_attention: the kernel is forward only; an "
+                           "input requires grad")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k "
+                         f"{tuple(k.shape)}")
+    if not (0 < dh <= _MAX_DH and sq > 0 and sk > 0
+            and 0 < b * hq <= _MAX_ROWS):
+        raise ValueError(f"flash_attention: needs 0 < dh <= {_MAX_DH}, "
+                         f"Sq, Sk > 0 and 0 < B*Hq <= {_MAX_ROWS}; q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("flash_attention: q/k/v head_dim must be "
+                         "contiguous")
+    lib = build.load("flash_attention")
+    out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):       # the launch uses the current device
+        code = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], dh ** -0.5, float(softcap), int(bool(causal)),
+            int(window), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, "flash_attention", code)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the decode-attention kernels.
+"""Plain PyTorch versions of the attention kernels.
 
-Same function as the CUDA kernels in ``csrc/``, in the same native cache
-layout, with the kernels' order of scaling: q is scaled by ``dh**-0.5``
-before the dot product (the model-side oracle ``attention_decode``
-scales the scores instead; the two agree to fp32 rounding).  The CPU
-tests run these, and ``chip_smoke.py`` holds the kernels against them on
-the card.  Nothing on the card's main path calls them.
+Same functions as the CUDA kernels in ``csrc/``, in the same (B, S, H,
+dh) layouts.  The decode versions follow the kernels' order of scaling:
+q is scaled by ``dh**-0.5`` before the dot product (the model-side oracle
+``attention_decode`` scales the scores instead; the two agree to fp32
+rounding).  ``flash_attention_ref`` is ``repro``'s ``attention_ref``
+(``repro/kernels/flash_attention/ref.py``), which scales the scores.
+The CPU tests run these, and ``chip_smoke.py`` holds the kernels against
+them on the card.  Nothing on the card's main path calls them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,30 @@ def ragged_decode_ref(q, k_cache, v_cache, cur_index, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0):
+    """q: (B, Sq, Hq, dh); k/v: (B, Sk, Hkv, dh) -> (B, Sq, Hq, dh) in q's
+    dtype.  Query head h uses kv head h // G; key j is visible to query i
+    when ``j <= i`` (causal) and ``j > i - window`` (window > 0); fp32
+    scores, softmax and product."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qh = q.reshape(b, sq, hkv, hq // hkv, dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qh, k.float()) * dh ** -0.5
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(sk, device=q.device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos <= q_pos
+    if window > 0:
+        valid &= k_pos > q_pos - window
+    p = torch.softmax(s.masked_fill(~valid, NEG_INF), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
 def gather_pages(pages, page_table):

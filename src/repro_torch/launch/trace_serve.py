@@ -3,6 +3,8 @@
     python -m repro_torch.launch.trace_serve --arch recurrentgemma-2b
     python -m repro_torch.launch.trace_serve --arch qwen2-0.5b \
         --max-len 1024 --prompt-lens 64,128,256,512,64,128,256,512
+    python -m repro_torch.launch.trace_serve --arch qwen2-0.5b \
+        --max-len 4096 --prompt-lens 1023,1024,1025,1500,2047,2049,3000,4000
 
 Draws full-width weights on the card (``torch.Generator`` seed 0), warms
 the engine up (kernel builds, library handles) on two short requests,
@@ -57,8 +59,8 @@ DECODE_CALLS = 4
 TOP = 8
 
 #: the port's hand-written kernels, by a part of their device names
-PORT_KERNELS = ("rglru_scan_kernel", "ragged_decode_kernel",
-                "paged_decode_kernel")
+PORT_KERNELS = ("rglru_scan_kernel", "flash_attention_kernel",
+                "ragged_decode_kernel", "paged_decode_kernel")
 
 
 def _window(name, prof, host_s, top):

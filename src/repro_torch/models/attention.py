@@ -1,9 +1,12 @@
 """GQA attention in plain PyTorch: reference, chunked (streaming softmax)
 and cached decode paths, mirroring ``repro.models.attention``.
 
-Prefill attention stays here as plain einsum + softmax: its kernel
-(``flash_attention_bhsd`` in the reference) belongs to a later slice.
-Decode attention on the main path goes through the kernel wrappers in
+On the card, prefill attention runs the flash kernel
+(``kernels.flash_attention.ops.flash_attention``, the port of
+``flash_attention_bhsd``) at every length; on the CPU it keeps the
+reference's choice of ``attention_reference`` or ``attention_chunked``
+(``select_attention``), which stay as the CPU path and the oracles.
+Decode attention on the card goes through the decode kernel wrappers in
 ``kernels.flash_attention.ops``; ``attention_decode`` and
 ``attention_decode_paged`` are the model-side oracles they are held to.
 """
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
@@ -211,8 +215,12 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, cur_index, *,
 
 
 def select_attention(cfg: ArchConfig, seq_len: int,
-                     skip_future: bool = False):
-    """Chunked attention for long sequences, the reference for short."""
+                     skip_future: bool = False, on_card: bool = False):
+    """On the card, the flash kernel's wrapper at every length; on the
+    CPU, as the reference picks: chunked attention for long sequences,
+    the full-score reference for short ones."""
+    if on_card:
+        return flash_attention
     if seq_len >= 1024:
         return partial(attention_chunked,
                        q_block=min(512, seq_len),

@@ -105,7 +105,8 @@ class Model:
         ctx = BlockCtx(
             cfg=cfg, mode=mode, positions=pos,
             attn_fn=select_attention(
-                cfg, s, skip_future=skip_future and mode == "prefill"),
+                cfg, s, skip_future=skip_future and mode == "prefill",
+                on_card=x.device.type == "cuda"),
             decode_idx=cache.get("idx"),
             window_cache=self.window_cache,
             ragged_kernel=use_ragged_kernel and mode == "decode",

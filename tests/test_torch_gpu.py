@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (decode attention, RG-LRU scan) on the card,
-against their plain PyTorch versions.
+"""The port's CUDA kernels (decode and prefill attention, RG-LRU scan)
+on the card, against their plain PyTorch versions.
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernels are
 built with nvcc at first use and have no CPU mode): the ``cuda`` fixture
@@ -121,7 +121,8 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     cur = torch.tensor([3, 31], dtype=torch.int32, device=cuda)
     ops.reset_launch_counts()
     ops.flash_decode_attention(q, k, k, cur)
-    assert ops.LAUNCHES == {"ragged_decode": 1, "paged_decode": 0}
+    assert ops.LAUNCHES == {"ragged_decode": 1, "paged_decode": 0,
+                            "flash_attention": 0}
     with pytest.raises(ValueError):
         ops.flash_decode_attention(q, k, k, cur.long())
     with pytest.raises(ValueError):
@@ -282,7 +283,10 @@ def test_recurrentgemma_prefill_runs_the_scan_kernel(cuda):
         assert rglru_ops.LAUNCHES["rglru_scan"] == (
             n_rglru if dev == "cuda" else 0)
         step, cache = m.decode_step(p, cache, logits.argmax(-1))
-        assert sum(ops.LAUNCHES.values()) == 0
+        assert ops.LAUNCHES == {
+            "ragged_decode": 0, "paged_decode": 0,
+            "flash_attention": cfg.n_layers - n_rglru if dev == "cuda"
+            else 0}
         got[dev] = (logits.cpu(), step.cpu())
     for a, b in zip(got["cuda"], got["cpu"]):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
@@ -307,5 +311,138 @@ def test_recurrentgemma_engine_on_card_matches_cpu(cuda, horizon):
             eng.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
                                max_new_tokens=int(rng.integers(1, 20))))
         done = {r.rid: r.output for r in eng.run()}
+        runs.append((done, eng.admit_order, eng.retire_steps))
+    assert runs[0] == runs[1]
+
+
+# ----- prefill (flash) attention -----------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dh,causal,window,softcap", [
+    (1, 128, 128, 2, 2, 16, True, 0, 0.0),
+    (2, 128, 128, 4, 2, 32, True, 0, 0.0),
+    (1, 256, 256, 6, 2, 64, True, 0, 0.0),
+    (2, 64, 64, 5, 1, 16, True, 0, 0.0),
+    (1, 128, 128, 8, 8, 8, True, 0, 0.0),
+    (1, 128, 128, 2, 1, 16, True, 16, 0.0),
+    (1, 128, 128, 2, 1, 16, True, 64, 0.0),
+    (1, 64, 128, 2, 2, 16, False, 0, 0.0),
+    (1, 128, 128, 2, 2, 16, True, 0, 10.0),
+    (1, 1, 1, 14, 2, 64, True, 0, 0.0),
+    (2, 7, 7, 14, 2, 64, True, 0, 0.0),
+    (1, 1500, 1500, 14, 2, 64, True, 0, 0.0),
+    (1, 300, 300, 10, 1, 256, True, 128, 0.0),
+    (1, 200, 333, 10, 2, 128, False, 0, 0.0),
+])
+def test_flash_kernel_matches_plain(cuda, b, sq, sk, hq, hkv, dh, causal,
+                                    window, softcap, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(sq * dh + hq)
+    q = _rand(gen, (b, sq, hq, dh), dtype)
+    k = _rand(gen, (b, sk, hkv, dh), dtype)
+    v = _rand(gen, (b, sk, hkv, dh), dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    expect = ref.flash_attention_ref(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert out.is_contiguous()
+    _assert_within_tolerance(out, expect)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k and v as views of one fused (B, S, Hq + 2 Hkv, dh) projection,
+    read in place through their strides; the output does not depend on
+    q_block / kv_block."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    qkv = _rand(gen, (2, 333, 14 + 2 + 2, 64), torch.float32)
+    q, k, v = qkv[:, :, :14], qkv[:, :, 14:16], qkv[:, :, 16:]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    out = ops.flash_attention(q, k, v, window=100)
+    torch.cuda.synchronize()
+    expect = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), window=100)
+    _assert_within_tolerance(out, expect)
+    assert torch.equal(out, ops.flash_attention(q, k, v, window=100,
+                                                q_block=64, kv_block=32))
+
+
+def test_flash_wrapper_counts_launches_and_rejects_bad_inputs(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q = _rand(gen, (2, 9, 4, 16), torch.float32)
+    k = _rand(gen, (2, 9, 2, 16), torch.float32)
+    ops.reset_launch_counts()
+    ops.flash_attention(q, k, k)
+    assert ops.LAUNCHES == {"ragged_decode": 0, "paged_decode": 0,
+                            "flash_attention": 1}
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :, :1].expand(2, 9, 3, 16), k)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :, :, :8], k[:, :, :, :8])
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[:, :0], k, k)
+    with pytest.raises(ValueError):
+        wide = _rand(gen, (2, 9, 4, 32), torch.float32)
+        ops.flash_attention(wide[..., ::2], k, k)
+    with pytest.raises(RuntimeError, match="grad"):
+        ops.flash_attention(q.requires_grad_(), k, k)
+    assert ops.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("length", [1024, 1500])
+def test_model_prefill_runs_the_flash_kernel(cuda, length):
+    """On the card every attention layer's prefill launches the kernel
+    once; logits and the filled cache match the CPU's (chunked attention
+    there) at fp32."""
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(length).integers(
+        1, 128, (2, length)), dtype=torch.int32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, dev)
+        cache = m.init_cache(2, 2048)
+        ops.reset_launch_counts()
+        logits, cache = m.prefill(m.prepare_params(params),
+                                  {"tokens": toks.to(dev)}, cache)
+        assert ops.LAUNCHES["flash_attention"] == (
+            cfg.n_layers if dev == "cuda" else 0)
+        got[dev] = (logits.cpu(),
+                    cache["stack"]["body"][0]["attn"]["k"].cpu())
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("pages", [False, True], ids=["contiguous", "pages4"])
+def test_engine_long_prompt_on_card_matches_cpu(cuda, pages):
+    """A round with a prompt of 1100 tokens (bucket 2048: the flash kernel
+    on the card, chunked attention on the CPU) serves the CPU's tokens at
+    fp32."""
+    from repro_torch.core.plan import EndpointPlan, SharingVector
+    from repro_torch.serve.engine import ContinuousEngine, Request
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    runs = []
+    for dev in ("cpu", "cuda"):
+        eng = ContinuousEngine(cfg, params, EndpointPlan(
+            vector=SharingVector(pages=4 if pages else 1), n_slots=3,
+            max_len=2048, decode_horizon=4, executor="continuous"),
+            device=dev)
+        rng = np.random.default_rng(7)
+        for rid, n in enumerate((1100, 30, 500, 12, 1024)):
+            eng.submit(Request(rid=rid, prompt=rng.integers(
+                1, 128, size=n).astype(np.int32), max_new_tokens=8))
+        ops.reset_launch_counts()
+        done = {r.rid: r.output for r in eng.run()}
+        assert ops.LAUNCHES["flash_attention"] == (
+            cfg.n_layers * eng.stats["prefills"] if dev == "cuda" else 0)
         runs.append((done, eng.admit_order, eng.retire_steps))
     assert runs[0] == runs[1]

@@ -86,7 +86,7 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     assert "served 3 requests, 9 tokens" in out
     assert "page pool: level 4" in out
     assert ("kernel launches: {'ragged_decode': 0, 'paged_decode': 0, "
-            "'rglru_scan': 0}") in out
+            "'flash_attention': 0, 'rglru_scan': 0}") in out
 
 
 def test_wrappers_route_cpu_tensors_to_the_plain_versions():
@@ -103,7 +103,8 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
     assert torch.equal(
         ops.paged_flash_decode_attention(q, pages, pages, pt, cur),
         ref.paged_decode_ref(q, pages, pages, pt, cur))
-    assert ops.LAUNCHES == {"ragged_decode": 0, "paged_decode": 0}
+    assert ops.LAUNCHES == {"ragged_decode": 0, "paged_decode": 0,
+                            "flash_attention": 0}
 
 
 def test_launcher_serves_recurrentgemma_on_the_cpu_when_asked(capsys):
@@ -116,7 +117,7 @@ def test_launcher_serves_recurrentgemma_on_the_cpu_when_asked(capsys):
     assert "served 3 requests, 12 tokens" in out
     assert "buckets off" in out and "page pool" not in out
     assert ("kernel launches: {'ragged_decode': 0, 'paged_decode': 0, "
-            "'rglru_scan': 0}") in out
+            "'flash_attention': 0, 'rglru_scan': 0}") in out
 
 
 def test_rglru_wrapper_routes_cpu_tensors_to_the_plain_version():
