@@ -10,7 +10,10 @@ Phases (any failure exits non-zero, without the final result line):
    flash-attention kernel and the RG-LRU scan) from their packages'
    ``csrc/`` under ``src/repro_torch/kernels`` with nvcc for sm_90a, one
    nvcc each, all started together, timed, with ptxas' register and
-   memory report;
+   spill report for each instantiation and, for the flash kernel, its
+   shared memory and its count of tensor-core (``HMMA``) instructions
+   from ``cuobjdump -sass``: each body must be found at all four head_dim
+   templates, the bf16 body must have some at each, and none may spill;
 3. each decode kernel against its plain PyTorch version on the card, at
    qwen2-0.5b's decode shapes (B=8, Hkv=2, G=7, dh=64, Smax=1024), fp32
    and bf16, softcap 0 and 30, edge lengths, and for the paged kernel a
@@ -20,7 +23,9 @@ Phases (any failure exits non-zero, without the final result line):
    and on strided views; then the flash kernel against its plain version
    over the reference's sweep (dh 8 to 256, G 1 to 10, windows 0, 16, 64
    and 2048, non-causal with Sk != Sq, softcap 10), at the lengths 1, 7,
-   1023, 1024, 1500 and 3001 and on strided views, fp32 and bf16;
+   1023, 1024, 1500 and 3001, at lengths on both sides of the tensor-core
+   body's tiles (15 to 129), a window ending mid-tile, and on strided
+   views, fp32 and bf16 (bf16 held to its limit per case and per row);
 4. qwen2-0.5b at full width (24 layers, random weights from
    ``torch.Generator`` seed 0) served through ``repro_torch.serve.connect``
    with a contiguous and with a paged (pages=4) cache: 16 requests, every
@@ -51,8 +56,10 @@ Phases (any failure exits non-zero, without the final result line):
 8. the recurrentgemma smoke config at fp32 served on the card and on the
    CPU, prompts past its window of 16: the tokens must agree;
 9. per kernel: its error against the plain version at the main path's
-   shapes (the flash kernel at both models' prefill shapes; held to the
-   tolerance), time per call, its bound, the plain
+   shapes (the flash kernel at both models' prefill shapes and at
+   qwen2-0.5b's batched admission of 8 x 4096 rows; held to the
+   tolerance, the bf16 flash kernel also row by row, each row's error
+   scaled by its own max |plain|), time per call, its bound, the plain
    version's time and, for attention,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls;
    no PyTorch call computes a linear recurrence), as one JSON line.
@@ -66,6 +73,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -80,7 +88,9 @@ BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16, dense tensor cores
 FP32_TOL = 5e-5
 #: bf16 limit per case, times max|plain output|: between 2 and 4 bf16 ulps
 #: of the largest output.  Kernel and plain version both accumulate in
-#: fp32 and round once to bf16, so they differ by at most one ulp.
+#: fp32 and round once to bf16, so they differ by about one ulp; the
+#: flash kernel's tensor-core P V also rounds P to bf16, which
+#: ``tests/test_torch_flash.py`` emulates within this limit.
 BF16_REL_TOL = 4 * 2.0 ** -8
 B, HKV, G, DH, SMAX = 8, 2, 7, 64, 1024
 N_REQUESTS, MAX_NEW, N_SLOTS, HORIZON = 16, 64, 8, 8
@@ -140,6 +150,45 @@ def card_line() -> str:
 
 # ----- phase 2 ---------------------------------------------------------------
 
+def _ptxas_report(log_text: str) -> dict:
+    """ptxas -v output -> {entry function: {"registers", "spill_stores",
+    "spill_loads"}}."""
+    report, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            report[fn].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            report[fn]["registers"] = int(m.group(1))
+    return report
+
+
+def _hmma_counts(library: str) -> dict:
+    """{function: HMMA (tensor-core) instructions} in a library's SASS."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", library],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def build_kernels():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -148,21 +197,53 @@ def build_kernels():
         f"(nvcc {' '.join(build.ARCH_FLAGS)})")
     for name, item in info.items():
         log(f"  {name}: {item['seconds']:.1f}s -> {item['path']}")
-        for line in item["ptxas"].splitlines():
-            if "Compiling entry" in line or "Used" in line:
-                log(f"    {line.strip()}")
         lib = build.load(name)
         if name in ("ragged_decode", "paged_decode"):
             lib.decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
             lib.decode_smem_bytes.restype = ctypes.c_longlong
             log(f"    dynamic shared memory per block at G={G}, dh={DH}: "
                 f"{lib.decode_smem_bytes(G, DH)} bytes")
-        elif name == "flash_attention":
-            lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
-            lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
-            log("    dynamic shared memory per block at dh=64 / dh=256: "
-                f"{lib.flash_attention_smem_bytes(64)} / "
-                f"{lib.flash_attention_smem_bytes(256)} bytes")
+        if name != "flash_attention":
+            for fn, r in _ptxas_report(item["ptxas"]).items():
+                log(f"    {fn[:60]}: {r}")
+            continue
+        # the flash library: one line per instantiation, with its
+        # tensor-core instructions
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int,
+                                                   ctypes.c_int]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+        hmma = _hmma_counts(item["path"])
+        found, faults = {"simt": [], "mma": []}, []
+        for fn, r in sorted(_ptxas_report(item["ptxas"]).items()):
+            m = re.search(r"flash_attention_kernel_(simt|mma)I\w*?Li(\d+)E",
+                          fn)
+            if not m:
+                continue
+            body, cap = m.group(1), int(m.group(2))
+            dtype = 1 if body == "mma" else 0
+            log(f"    flash_attention {body} dh<={cap} "
+                f"({'bf16' if dtype else 'fp32'}): {r.get('registers')} "
+                f"registers, spill stores {r.get('spill_stores')} / loads "
+                f"{r.get('spill_loads')} bytes, "
+                f"{lib.flash_attention_smem_bytes(cap, dtype)} bytes of "
+                f"shared memory per block, {hmma.get(fn, 0)} HMMA "
+                f"instructions")
+            found[body].append(cap)
+            if body == "mma" and not hmma.get(fn):
+                faults.append(f"the bf16 body at dh<={cap} has no "
+                              f"tensor-core (HMMA) instruction")
+            if r.get("spill_stores") != 0:
+                faults.append(f"the {body} body at dh<={cap} spills "
+                              f"{r.get('spill_stores')} bytes")
+        log(f"    flash_attention library: {sum(hmma.values())} HMMA "
+            f"instructions in all")
+        for body in found:
+            if sorted(found[body]) != [32, 64, 128, 256]:
+                faults.append(f"{body} instantiations found at dh<= "
+                              f"{sorted(found[body])}, expected 32, 64, "
+                              f"128 and 256")
+        if faults:
+            raise AssertionError(f"flash_attention build: {faults}")
 
 
 # ----- phase 3 ---------------------------------------------------------------
@@ -173,6 +254,17 @@ def tolerance(expect) -> float:
     if expect.dtype == torch.bfloat16:
         return BF16_REL_TOL * expect.float().abs().max().item()
     return FP32_TOL
+
+
+def row_error(out, expect) -> float:
+    """The largest, over rows (the head_dim values of one query and head),
+    of a row's max |kernel - plain| over its own max |plain|.  A bf16
+    attention kernel is held to ``BF16_REL_TOL`` on this too: rows that
+    average over thousands of keys are far smaller than the first causal
+    rows, which set the per-case limit."""
+    err = (out.float() - expect.float()).abs().amax(-1)
+    top = expect.float().abs().amax(-1)
+    return (err / top.clamp_min(1e-30)).max().item()
 
 
 def _rand(gen, shape, dtype):
@@ -309,7 +401,8 @@ def check_rglru() -> None:
 #: the flash kernel's sweep: (B, Sq, Sk, Hq, Hkv, dh, causal, window,
 #: softcap); the reference's test shapes, then qwen2-0.5b's heads (G=7,
 #: dh 64) and recurrentgemma-2b's (G=10, dh 256, window 2048) at the
-#: main paths' lengths
+#: main paths' lengths, and at lengths on both sides of the tensor-core
+#: body's tiles (64 keys; 128 query rows at dh 64, 64 at dh 256)
 FLASH_CASES = [
     (1, 128, 128, 2, 2, 16, True, 0, 0.0),
     (2, 128, 128, 4, 2, 32, True, 0, 0.0),
@@ -330,6 +423,13 @@ FLASH_CASES = [
     (1, 1500, 1500, 10, 1, 256, True, 2048, 0.0),
     (1, 3001, 3001, 10, 1, 256, True, 2048, 0.0),
     (1, 200, 333, 10, 1, 256, False, 0, 0.0),
+    *[(1, n, n, 14, 2, 64, True, 0, 0.0)
+      for n in (15, 16, 17, 63, 65, 127, 128, 129)],
+    *[(1, n, n, 10, 1, 256, True, 2048, 0.0)
+      for n in (15, 16, 17, 63, 65, 127, 128, 129)],
+    (1, 300, 300, 10, 1, 256, True, 100, 0.0),     # window ends mid-tile
+    (2, 100, 257, 14, 2, 64, False, 0, 0.0),       # full, Sk != Sq
+    (1, 257, 100, 14, 2, 64, False, 0, 0.0),
 ]
 
 
@@ -359,16 +459,21 @@ def check_flash() -> None:
         expect = ref.flash_attention_ref(q, k, v, **kw)
         err = (out.float() - expect.float()).abs().max().item()
         tol = tolerance(expect)
-        key = str(expect.dtype) if dtype != "strided" else "strided bf16"
-        worst[key] = max(worst.get(key, 0.0), err)
-        if not err <= tol or out.shape != q.shape:
+        rows = row_error(out, expect) if out.dtype == torch.bfloat16 else 0.0
+        key = ("strided " if dtype == "strided" else "") + \
+            ("bf16" if out.dtype == torch.bfloat16 else "fp32")
+        e0, r0 = worst.get(key, (0.0, 0.0))
+        worst[key] = max(e0, err), max(r0, rows)
+        if not (err <= tol and rows <= BF16_REL_TOL) or \
+                out.shape != q.shape:
             bad.append((str(dtype), b, sq, sk, hq, hkv, dh, causal, window,
-                        softcap, err, tol))
-    for key, err in worst.items():
+                        softcap, err, tol, rows))
+    for key, (err, rows) in worst.items():
         log(f"flash_attention {key}: largest max abs err {err:.3e} over "
-            f"the sweep")
+            f"the sweep" + (f", largest row-scaled err {rows:.4f}"
+                            if "bf16" in key else ""))
     log(f"flash_attention: {len(cases)} cases (fp32 limit {FP32_TOL}, "
-        f"bf16 limit {BF16_REL_TOL:.4f} x max|plain| per case)")
+        f"bf16 limit {BF16_REL_TOL:.4f} x max|plain| per case and per row)")
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"version: {bad}")
@@ -912,29 +1017,32 @@ def time_rglru(launches: int):
     return entry
 
 
-#: the flash kernel's timed shapes, one per main path, bf16, causal:
-#: (model, S, Hq, Hkv, dh, window)
-FLASH_TIMED = (("qwen2-0.5b", 4096, 14, 2, 64, 0),
-               ("recurrentgemma-2b", 3500, 10, 1, 256, 2048))
+#: the flash kernel's timed shapes, bf16, causal: (path, B, S, Hq, Hkv,
+#: dh, window); qwen2-0.5b's long prompt prefilled alone (one stream) and
+#: its batched admission of 8 rows of 4096, recurrentgemma-2b's longest
+#: prompt
+FLASH_TIMED = (("qwen2-0.5b", 1, 4096, 14, 2, 64, 0),
+               ("qwen2-0.5b admission", 8, 4096, 14, 2, 64, 0),
+               ("recurrentgemma-2b", 1, 3500, 10, 1, 256, 2048))
 
 
 def time_flash(launches: dict):
     """The flash kernel at each main path's prefill shape (``FLASH_TIMED``,
-    B=1, four inputs in turn), against its plain version and
+    four inputs in turn), against its plain version and
     ``scaled_dot_product_attention`` (``is_causal``, or a boolean mask
-    for the window).  ``launches``: the kernel's count on each model's
-    main-path run.  The entry's own numbers are qwen2-0.5b's; ``cases``
-    holds both shapes'."""
+    for the window).  ``launches``: the kernel's count on each path's
+    main-path run.  The entry's own numbers are the first shape's;
+    ``cases`` holds every shape's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(5)
     dt, n_inputs = torch.bfloat16, 4
     cases = []
-    for model, s, hq, hkv, dh, window in FLASH_TIMED:
-        inputs = [(_rand(gen, (1, s, hq, dh), dt),
-                   _rand(gen, (1, s, hkv, dh), dt),
-                   _rand(gen, (1, s, hkv, dh), dt)) for _ in range(n_inputs)]
+    for model, b, s, hq, hkv, dh, window in FLASH_TIMED:
+        inputs = [(_rand(gen, (b, s, hq, dh), dt),
+                   _rand(gen, (b, s, hkv, dh), dt),
+                   _rand(gen, (b, s, hkv, dh), dt)) for _ in range(n_inputs)]
         kw = dict(causal=True, window=window)
         pos = torch.arange(s, device="cuda")
         allowed = (pos[None, :] <= pos[:, None]) & \
@@ -952,27 +1060,33 @@ def time_flash(launches: dict):
                 q, k, v, attn_mask=allowed if window else None,
                 is_causal=not window, enable_gqa=True).transpose(1, 2)
 
-        err, tol = 0.0, float("inf")
+        err, tol, rows = 0.0, float("inf"), 0.0
         for i in range(n_inputs):
-            expect = plain(i)
-            e = (kern(i).float() - expect.float()).abs().max().item()
+            expect, out = plain(i), kern(i)
+            e = (out.float() - expect.float()).abs().max().item()
+            r = row_error(out, expect)
             err, tol = max(err, e), min(tol, tolerance(expect))
-            if not e <= tolerance(expect):
+            rows = max(rows, r)
+            if not (e <= tolerance(expect) and r <= BF16_REL_TOL):
                 raise AssertionError(f"flash_attention at {model}'s shape: "
-                                     f"err {e} > {tolerance(expect)}")
+                                     f"err {e} (limit {tolerance(expect)}), "
+                                     f"row-scaled err {r} (limit "
+                                     f"{BF16_REL_TOL})")
+            del expect, out
         lib_err = (sdpa(0).float() - plain(0).float()).abs().max().item()
         ms = _time_ms(kern, n_inputs)
         plain_ms = _time_ms(plain, n_inputs, iters=2)
         lib_ms = _time_ms(sdpa, n_inputs)
-        pairs = sum(min(t + 1, window) if window else t + 1
-                    for t in range(s))
+        pairs = b * sum(min(t + 1, window) if window else t + 1
+                        for t in range(s))
         flops = 4 * pairs * dh * hq
-        io_bytes = 2 * (s * hq * dh + s * hkv * dh) * dt.itemsize
+        io_bytes = 2 * b * (s * hq * dh + s * hkv * dh) * dt.itemsize
         t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
-        case = dict(model=model, shape=f"(1, {s}, {hq}/{hkv}, {dh}) causal"
+        case = dict(model=model, shape=f"({b}, {s}, {hq}/{hkv}, {dh}) causal"
                     f"{f' window {window}' if window else ''} bf16",
-                    launches=launches[model], max_abs_err=err, ms=ms,
+                    launches=launches[model], max_abs_err=err,
+                    max_row_rel_err=rows, ms=ms,
                     plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
                     library_ms=lib_ms)
@@ -984,10 +1098,12 @@ def time_flash(launches: dict):
             f"{flops / FP32_FLOPS_PER_S * 1e6:.0f} us at the fp32 FMA peak; "
             f"{io_bytes / 1e6:.1f} MB), plain {plain_ms * 1e3:.1f} us, SDPA "
             f"{lib_ms * 1e3:.1f} us (max abs err vs plain {lib_err:.3e}), "
-            f"max abs err {err:.3e} (tolerance {tol:.3e} or more); "
+            f"max abs err {err:.3e} (tolerance {tol:.3e} or more), "
+            f"row-scaled err {rows:.4f} (limit {BF16_REL_TOL:.4f}); "
             f"launches on the main path {launches[model]}")
         del inputs
-    top = {k: v for k, v in cases[0].items() if k not in ("model", "shape")}
+    top = {k: v for k, v in cases[0].items()
+           if k not in ("model", "shape", "max_row_rel_err")}
     return dict(name="flash_attention", **KERNELS["flash_attention"], **top,
                 cases=cases)
 
@@ -1052,7 +1168,8 @@ def main() -> int:
                         [len(p) for p in prompts])
     if long is not None and rg is not None:
         flash = phase("flash_attention timing", time_flash, {
-            "qwen2-0.5b": long["contiguous"]["launches"],
+            "qwen2-0.5b": long["one stream"]["launches"],
+            "qwen2-0.5b admission": long["contiguous"]["launches"],
             "recurrentgemma-2b": rg["flash_launches"]})
     if rg is not None:
         rg_kernel = phase("rglru_scan timing", time_rglru, rg["launches"])

@@ -26,7 +26,6 @@ LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_G_DH = 4096      # g * dh floats per block in shared memory (x2)
 _MAX_DH = 256         # the prefill kernel's largest head_dim tile
-_MAX_ROWS = 65535     # B * Hq: the prefill kernel's grid.y
 
 
 def reset_launch_counts() -> None:
@@ -137,10 +136,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_block: int = 1024):
     """Prefill attention.  q: (B, Sq, Hq, dh); k/v: (B, Sk, Hkv, dh) ->
     (B, Sq, Hq, dh) in q's dtype, contiguous.  Any Sq, Sk >= 1; q, k and
-    v may be strided views with a contiguous head_dim.  ``q_block`` and
-    ``kv_block`` are the reference's tiling; the result does not depend
-    on them, and the kernel keeps its own tiles.  Forward only: on the
-    card an input that requires grad raises."""
+    v may be strided views with a contiguous head_dim (in bf16, which runs
+    on the tensor cores, with dh and every stride a multiple of 8 and
+    16-byte aligned data: the views of a fused projection are).
+    ``q_block`` and ``kv_block`` are the reference's tiling; the result
+    does not depend on them, and the kernel keeps its own tiles.  Forward
+    only: on the card an input that requires grad raises."""
     del q_block, kv_block
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -170,22 +171,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if k.shape[0] != b or k.shape[3] != dh or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k "
                          f"{tuple(k.shape)}")
-    if not (0 < dh <= _MAX_DH and sq > 0 and sk > 0
-            and 0 < b * hq <= _MAX_ROWS):
+    if not (0 < dh <= _MAX_DH and sq > 0 and sk > 0 and b * hq > 0):
         raise ValueError(f"flash_attention: needs 0 < dh <= {_MAX_DH}, "
-                         f"Sq, Sk > 0 and 0 < B*Hq <= {_MAX_ROWS}; q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+                         f"Sq, Sk > 0 and B*Hq > 0; q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: q/k/v head_dim must be "
                          "contiguous")
+    # a dimension of size 1 is never stepped over: its stride is 0 here
+    strides = [s if n > 1 else 0 for t in (q, k, v)
+               for n, s in zip(t.shape[:3], t.stride()[:3])]
+    if q.dtype == torch.bfloat16 and (
+            dh % 8 or any(s % 8 for s in strides)
+            or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("flash_attention: the bf16 kernel copies rows in "
+                         "16-byte pieces; it needs dh % 8 == 0, strides "
+                         "that are multiples of 8 and 16-byte aligned "
+                         f"q/k/v (dh {dh}, strides {strides})")
     lib = build.load("flash_attention")
     out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):       # the launch uses the current device
         code = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, hq, hkv, dh, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], dh ** -0.5, float(softcap), int(bool(causal)),
-            int(window), _DTYPES[q.dtype],
+            sk, hq, hkv, dh, *strides, dh ** -0.5, float(softcap),
+            int(bool(causal)), int(window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention", code)
     LAUNCHES["flash_attention"] += 1

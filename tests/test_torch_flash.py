@@ -15,6 +15,8 @@ in ``test_torch_model.py``.
 
 import dataclasses
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +30,8 @@ from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.model import Model as JModel
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                     flash_attention_ref)
 from repro_torch.models import attention as tattn
 from repro_torch.models.model import Model
 from repro_torch.models.params import from_numpy
@@ -162,6 +165,93 @@ def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
     assert torch.equal(ops.flash_attention(q, k, v, window=5, softcap=3.0),
                        flash_attention_ref(q, k, v, window=5, softcap=3.0))
     assert ops.LAUNCHES["flash_attention"] == 0
+
+
+# ----- the bf16 kernel's rounding, emulated --------------------------------
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CHIP_SMOKE = _load_chip_smoke()
+
+
+def tensor_core_emulation(q, k, v, *, causal=True, window=0, softcap=0.0,
+                          kv_tile=64, round_p=True):
+    """The bf16 kernel's arithmetic in plain torch: kv tiles of 64 keys,
+    the online softmax in fp32 in the reference's order (m_new, p, alpha,
+    l, acc) with the finite -1e30 mask, l summed from fp32 p, P rounded to
+    bf16 before P V (``round_p``; the tensor cores multiply bf16 and sum
+    in fp32), division by max(l, 1e-30) at the end and the output rounded
+    once to q's dtype."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qh = q.float().reshape(b, sq, hkv, hq // hkv, dh)
+    m = torch.full((b, hkv, hq // hkv, sq), NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(m.shape + (dh,))
+    q_pos = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, kv_tile):
+        kt, vt = k[:, k0:k0 + kv_tile].float(), v[:, k0:k0 + kv_tile].float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qh, kt) * dh ** -0.5
+        if softcap > 0:
+            s = torch.tanh(s / softcap) * softcap
+        k_pos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        valid = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            valid &= k_pos <= q_pos
+        if window > 0:
+            valid &= k_pos > q_pos - window
+        s = s.masked_fill(~valid, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        if round_p:
+            p = p.bfloat16().float()
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                    vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+#: every bf16 case of chip_smoke's flash sweep small enough for the CPU,
+#: then the two main paths' heads at 1024 and 1500 tokens
+EMULATED_CASES = [c for c in CHIP_SMOKE.FLASH_CASES
+                  if c[1] * c[2] <= 1024 * 1024] + [
+    (1, n, n, 14, 2, 64, True, 0, 0.0) for n in (1024, 1500)] + [
+    (1, n, n, 10, 1, 256, True, 2048, 0.0) for n in (1024, 1500)]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,dh,causal,window,softcap",
+                         EMULATED_CASES)
+def test_tensor_core_rounding_within_the_card_limit(b, sq, sk, hq, hkv, dh,
+                                                    causal, window, softcap):
+    """The card holds the bf16 kernel to BF16_REL_TOL * max|plain| of
+    ``flash_attention_ref``, per case and per row (each row's error over
+    its own max |plain|); the kernel's tensor-core P V rounds P to
+    bf16, which the oracle does not.  The emulation of that rounding stays
+    inside the limit on chip_smoke's inputs (standard normal, rounded to
+    bf16), and without the rounding (fp32 inputs) it is the oracle within
+    the reference's fp32 tolerance."""
+    arrays = _qkv(sq * 7 + dh, b, sq, sk, hq, hkv, dh)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    q, k, v = _torch(arrays, torch.bfloat16)
+    plain = flash_attention_ref(q, k, v, **kw)
+    emulated = tensor_core_emulation(q, k, v, **kw)
+    assert emulated.dtype == torch.bfloat16 and emulated.shape == q.shape
+    limit = CHIP_SMOKE.BF16_REL_TOL * plain.float().abs().max().item()
+    assert (emulated.float() - plain.float()).abs().max().item() <= limit
+    assert CHIP_SMOKE.row_error(emulated, plain) <= CHIP_SMOKE.BF16_REL_TOL
+    q, k, v = _torch(arrays)
+    torch.testing.assert_close(
+        tensor_core_emulation(q, k, v, round_p=False, **kw),
+        flash_attention_ref(q, k, v, **kw), rtol=0, atol=FP32_TOL)
 
 
 # ----- routing ---------------------------------------------------------------

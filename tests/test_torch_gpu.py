@@ -10,7 +10,9 @@ skips them where there is no card.  On a machine with one:
 Tolerances: fp32 5e-5 (the same arithmetic as the plain version, summed
 in another order); bf16 4 * 2^-8 * max|plain output|, between 2 and 4
 bf16 ulps of the largest output (both accumulate in fp32 and round once
-to bf16, so they differ by at most one ulp).  The RG-LRU scan runs the
+to bf16, so they differ by about one ulp; the prefill kernel's
+tensor-core P V also rounds P to bf16, which ``test_torch_flash.py``
+emulates on the CPU within the same limit).  The RG-LRU scan runs the
 plain version's own operations in its order, so it is held to
 1e-5 * max(1, max|plain output|) in fp32 and the same bf16 limit.
 """
@@ -46,6 +48,15 @@ def _assert_within_tolerance(out, expect, fp32_tol=FP32_TOL):
     tol = (BF16_REL_TOL * expect.float().abs().max().item()
            if expect.dtype == torch.bfloat16 else fp32_tol)
     assert (out.float() - expect.float()).abs().max().item() <= tol
+
+
+def _assert_rows_within_tolerance(out, expect):
+    """bf16 attention, row by row: each (query, head) row's error within
+    BF16_REL_TOL of its own max |plain|, so that rows averaging over many
+    keys, far smaller than the first causal rows, are held too."""
+    if expect.dtype == torch.bfloat16:
+        err = (out.float() - expect.float()).abs().amax(-1)
+        assert (err <= BF16_REL_TOL * expect.float().abs().amax(-1)).all()
 
 
 def _rand(gen, shape, dtype):
@@ -334,6 +345,16 @@ def test_recurrentgemma_engine_on_card_matches_cpu(cuda, horizon):
     (1, 1500, 1500, 14, 2, 64, True, 0, 0.0),
     (1, 300, 300, 10, 1, 256, True, 128, 0.0),
     (1, 200, 333, 10, 2, 128, False, 0, 0.0),
+    # both sides of the tensor-core body's tiles (64 keys; 128 query rows
+    # at dh 64, 64 at dh 256), at qwen2's heads (G = 7) and
+    # recurrentgemma's (G = 10)
+    *[(1, n, n, 14, 2, 64, True, 0, 0.0)
+      for n in (15, 16, 17, 63, 65, 127, 128, 129)],
+    *[(1, n, n, 10, 1, 256, True, 2048, 0.0)
+      for n in (15, 16, 17, 63, 65, 127, 128, 129)],
+    (1, 300, 300, 10, 1, 256, True, 100, 0.0),     # window ends mid-tile
+    (2, 100, 257, 14, 2, 64, False, 0, 0.0),       # full, Sk != Sq
+    (1, 257, 100, 14, 2, 64, False, 0, 0.0),
 ])
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, hq, hkv, dh, causal,
                                     window, softcap, dtype):
@@ -348,6 +369,7 @@ def test_flash_kernel_matches_plain(cuda, b, sq, sk, hq, hkv, dh, causal,
     assert out.dtype == dtype and out.shape == q.shape
     assert out.is_contiguous()
     _assert_within_tolerance(out, expect)
+    _assert_rows_within_tolerance(out, expect)
 
 
 def test_flash_kernel_reads_strided_views(cuda):
@@ -393,6 +415,50 @@ def test_flash_wrapper_counts_launches_and_rejects_bad_inputs(cuda):
     with pytest.raises(RuntimeError, match="grad"):
         ops.flash_attention(q.requires_grad_(), k, k)
     assert ops.LAUNCHES["flash_attention"] == 1
+
+
+def test_flash_bf16_wrapper_rejects_what_16_byte_copies_cannot_take(cuda):
+    """The bf16 kernel copies rows in 16-byte pieces: dh, the strides and
+    the data must allow it, or the wrapper raises before any launch."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q = _rand(gen, (2, 9, 4, 16), torch.bfloat16)
+    k = _rand(gen, (2, 9, 2, 16), torch.bfloat16)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte"):      # dh % 8
+        ops.flash_attention(q[..., :12].contiguous(),
+                            k[..., :12].contiguous(), k[..., :12].contiguous())
+    with pytest.raises(ValueError, match="16-byte"):      # row stride 20
+        wide = _rand(gen, (2, 9, 4, 20), torch.bfloat16)
+        ops.flash_attention(wide[..., :16], k, k)
+    with pytest.raises(ValueError, match="16-byte"):      # 2-byte offset
+        flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                           device="cuda")
+        ops.flash_attention(flat[1:].view(q.shape), k, k)
+    assert ops.LAUNCHES["flash_attention"] == 0
+    # views of a fused projection pass, and a dimension of size 1 is
+    # never stepped over, whatever its stride
+    qkv = _rand(gen, (1, 9, 8, 16), torch.bfloat16)
+    q1 = qkv.as_strided((1, 9, 4, 16), (3, 128, 16, 1))
+    k1, v1 = qkv[:, :, 4:6], qkv[:, :, 6:]
+    out = ops.flash_attention(q1, k1, v1)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    expect = ref.flash_attention_ref(q1, k1, v1)
+    _assert_within_tolerance(out, expect)
+    _assert_rows_within_tolerance(out, expect)
+
+
+def test_flash_grid_limit_is_the_launching_bodys(cuda):
+    """B * Hq is the fp32 body's grid.y, at most 65535; the bf16 body puts
+    it on grid.x, so the same rows launch there."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q = _rand(gen, (65536, 1, 1, 8), torch.float32)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.flash_attention(q, q, q)
+    q = q.bfloat16()
+    out = ops.flash_attention(q, q, q)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    _assert_within_tolerance(out, ref.flash_attention_ref(q, q, q))
 
 
 @pytest.mark.parametrize("length", [1024, 1500])
