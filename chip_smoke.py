@@ -14,10 +14,17 @@ Phases (any failure exits non-zero, without the final result line):
    shared memory and its count of tensor-core (``HMMA``) instructions
    from ``cuobjdump -sass``: each body must be found at all four head_dim
    templates, the bf16 body must have some at each, and none may spill;
+   each decode library must hold its five split instantiations (the SIMT
+   body in fp32 and bf16 with 16-byte and element loads, the bf16
+   tensor-core body at dh up to 64) and its two combine
+   instantiations, none spilling;
 3. each decode kernel against its plain PyTorch version on the card, at
-   qwen2-0.5b's decode shapes (B=8, Hkv=2, G=7, dh=64, Smax=1024), fp32
-   and bf16, softcap 0 and 30, edge lengths, and for the paged kernel a
-   fragmented page table with sentinels over a tight pool; then the
+   qwen2-0.5b's decode heads (Hkv=2, G=7, dh=64) over a cache of 1024
+   and one of 4096 keys, fp32 and bf16 (bf16 also row by row), softcap 0
+   and 30, edge lengths, lengths on both sides of the split kernel's
+   chunk edges and the long prompts' lengths, and for the paged kernel a
+   fragmented page table with sentinels over a tight pool, contiguous =
+   paged bit for bit at both caches; then the
    RG-LRU scan against its plain version at T in {1, 7, 2048, 3001}, C in
    {64, 2560}, fp32 and bf16, with ``a`` near 0.999 so the carry grows,
    and on strided views; then the flash kernel against its plain version
@@ -56,10 +63,12 @@ Phases (any failure exits non-zero, without the final result line):
 8. the recurrentgemma smoke config at fp32 served on the card and on the
    CPU, prompts past its window of 16: the tokens must agree;
 9. per kernel: its error against the plain version at the main path's
-   shapes (the flash kernel at both models' prefill shapes and at
+   shapes (the decode kernels at phase 4's and phase 5's caches, 1024 and
+   4096 keys; the flash kernel at both models' prefill shapes and at
    qwen2-0.5b's batched admission of 8 x 4096 rows; held to the
-   tolerance, the bf16 flash kernel also row by row, each row's error
-   scaled by its own max |plain|), time per call, its bound, the plain
+   tolerance, bf16 attention also row by row, each row's error scaled by
+   its own max |plain|), time per call (the decode kernels also replayed
+   in a CUDA graph, without the host's dispatch), its bound, the plain
    version's time and, for attention,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls;
    no PyTorch call computes a linear recurrence), as one JSON line.
@@ -151,8 +160,8 @@ def card_line() -> str:
 # ----- phase 2 ---------------------------------------------------------------
 
 def _ptxas_report(log_text: str) -> dict:
-    """ptxas -v output -> {entry function: {"registers", "spill_stores",
-    "spill_loads"}}."""
+    """ptxas -v output -> {entry function: {"registers", "stack_frame",
+    "spill_stores", "spill_loads"}}."""
     report, fn = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -165,6 +174,9 @@ def _ptxas_report(log_text: str) -> dict:
         if m and fn:
             report[fn].update(spill_stores=int(m.group(1)),
                               spill_loads=int(m.group(2)))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and fn:
+            report[fn]["stack_frame"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
             report[fn]["registers"] = int(m.group(1))
@@ -189,6 +201,53 @@ def _hmma_counts(library: str) -> dict:
     return counts
 
 
+#: the decode libraries' split-kernel instantiations: (dtype, elements
+#: per load, DHC): the SIMT body (DHC 0) with 16-byte and with element
+#: loads, and the bf16 tensor-core body at dh up to 64
+DECODE_SPLITS = {("fp32", 4, 0), ("fp32", 1, 0), ("bf16", 8, 0),
+                 ("bf16", 1, 0), ("bf16", 8, 64)}
+_MANGLED_DTYPES = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+
+
+def _decode_build_gate(name: str, item: dict, lib) -> None:
+    """Print each split and combine instantiation's registers, spills and
+    shared memory; fail on a spill or a missing instantiation."""
+    lib.decode_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.decode_smem_bytes.restype = ctypes.c_longlong
+    kind = name.split("_")[0]
+    splits, combines, faults = set(), set(), []
+    for fn, r in sorted(_ptxas_report(item["ptxas"]).items()):
+        m = re.search(rf"{kind}_split_kernelI(f|13__nv_bfloat16)Li(\d+)ELi"
+                      rf"(\d+)E", fn)
+        c = re.search(r"decode_combine_kernelI(f|13__nv_bfloat16)E", fn)
+        if m:
+            key = (_MANGLED_DTYPES[m.group(1)], int(m.group(2)),
+                   int(m.group(3)))
+            splits.add(key)
+            what = (f"split {key[0]}, tensor cores, dh <= {key[2]}" if key[2]
+                    else f"split {key[0]}, {key[1]} element(s) a load")
+        elif c:
+            combines.add(_MANGLED_DTYPES[c.group(1)])
+            what = f"combine {_MANGLED_DTYPES[c.group(1)]}"
+        else:
+            continue
+        log(f"    {name} {what}: {r.get('registers')} registers, "
+            f"{r.get('stack_frame')} bytes of stack, spill stores "
+            f"{r.get('spill_stores')} / loads {r.get('spill_loads')} bytes")
+        if r.get("spill_stores") != 0 or r.get("spill_loads") != 0:
+            faults.append(f"{what} spills")
+    log(f"    dynamic shared memory per split block at dh={DH}: "
+        f"{lib.decode_smem_bytes(DH, 0, 1)} bytes (fp32), "
+        f"{lib.decode_smem_bytes(DH, 1, 1)} bytes (bf16, tensor cores)")
+    if splits != DECODE_SPLITS:
+        faults.append(f"split instantiations missing: "
+                      f"{sorted(DECODE_SPLITS - splits)}")
+    if combines != {"fp32", "bf16"}:
+        faults.append(f"combine instantiations found: {sorted(combines)}")
+    if faults:
+        raise AssertionError(f"{name} build: {faults}")
+
+
 def build_kernels():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -199,10 +258,8 @@ def build_kernels():
         log(f"  {name}: {item['seconds']:.1f}s -> {item['path']}")
         lib = build.load(name)
         if name in ("ragged_decode", "paged_decode"):
-            lib.decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.decode_smem_bytes.restype = ctypes.c_longlong
-            log(f"    dynamic shared memory per block at G={G}, dh={DH}: "
-                f"{lib.decode_smem_bytes(G, DH)} bytes")
+            _decode_build_gate(name, item, lib)
+            continue
         if name != "flash_attention":
             for fn, r in _ptxas_report(item["ptxas"]).items():
                 log(f"    {fn[:60]}: {r}")
@@ -291,61 +348,83 @@ def _paged_table(gen, cur, max_pages, ps, n_pages):
     return pt
 
 
+#: check_kernels' shapes: (Smax, lengths); the edges of the short cache,
+#: both sides of the decode kernels' first chunk edges, and qwen2-0.5b's
+#: long-prompt lengths (1039 to 4016 mid-decode) up to a retired row
+DECODE_CHECKED = (
+    (SMAX, (0, SMAX - 1, SMAX, 5000, 1, 63, 64, 700, 127, 128, 129, 255)),
+    (LONG_MAX_LEN, (127, 128, 129, 1039, 2047, 2048, 3000, 4016, 4095,
+                    5000)),
+)
+
+
 def check_kernels() -> None:
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cur_list = [0, SMAX - 1, SMAX, 5000, 1, 63, 64, 700]
-    cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
     ps = 64
-    max_pages, n_pages = SMAX // ps, 40          # tight: 40 < 8 * 16
-    pt = _paged_table(gen, cur_list, max_pages, ps, n_pages)
     bad = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for softcap in (0.0, 30.0):
-            q = _rand(gen, (B, 1, HKV * G, DH), dtype)
-            k = _rand(gen, (B, SMAX, HKV, DH), dtype)
-            v = _rand(gen, (B, SMAX, HKV, DH), dtype)
-            out = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
-            torch.cuda.synchronize()
-            expect = ref.ragged_decode_ref(q, k, v, cur, softcap=softcap)
-            err = (out.float() - expect.float()).abs().max().item()
-            tol = tolerance(expect)
-            log(f"ragged_decode {dtype} softcap={softcap}: max abs err "
-                f"{err:.3e} (tolerance {tol:.3e})")
-            if not err <= tol:
-                bad.append(("ragged_decode", dtype, softcap, err))
-            kp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
-            vp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
-            out = ops.paged_flash_decode_attention(q, kp, vp, pt, cur,
-                                                   softcap=softcap)
-            torch.cuda.synchronize()
-            expect = ref.paged_decode_ref(q, kp, vp, pt, cur,
-                                          softcap=softcap)
-            err = (out.float() - expect.float()).abs().max().item()
-            tol = tolerance(expect)
-            log(f"paged_decode  {dtype} softcap={softcap}: max abs err "
-                f"{err:.3e} (tolerance {tol:.3e}; {n_pages}-page pool, "
-                f"fragmented table with sentinels)")
-            if not err <= tol:
-                bad.append(("paged_decode", dtype, softcap, err))
-            # the same cache, contiguous and scattered over pages: both
-            # kernels walk keys in the same order, so outputs are equal
-            perm = torch.randperm(B * max_pages, generator=gen,
-                                  device="cuda")
-            pages = torch.empty((B * max_pages, ps, HKV, DH), dtype=dtype,
-                                device="cuda")
-            pages[perm] = k.reshape(B * max_pages, ps, HKV, DH)
-            vpages = torch.empty_like(pages)
-            vpages[perm] = v.reshape(B * max_pages, ps, HKV, DH)
-            table = perm.reshape(B, max_pages).int()
-            a = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
-            c = ops.paged_flash_decode_attention(q, pages, vpages, table,
-                                                 cur, softcap=softcap)
-            same = torch.equal(a, c)
-            log(f"  contiguous == paged on the same cache: {same}")
-            if not same:
-                bad.append(("paged == contiguous", dtype, softcap, None))
+    for smax, cur_list in DECODE_CHECKED:
+        b = len(cur_list)
+        cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
+        max_pages = smax // ps
+        # tight: only the pages the live rows need, and two spare
+        n_pages = sum(c // ps + 1 for c in cur_list if c < smax) + 2
+        pt = _paged_table(gen, cur_list, max_pages, ps, n_pages)
+        chunk, n_split = ops.decode_splits(smax)
+        log(f"decode kernels at Smax {smax} ({n_split} splits of {chunk} "
+            f"keys), lengths {list(cur_list)}:")
+        for dtype in (torch.float32, torch.bfloat16):
+            for softcap in (0.0, 30.0):
+                q = _rand(gen, (b, 1, HKV * G, DH), dtype)
+                k = _rand(gen, (b, smax, HKV, DH), dtype)
+                v = _rand(gen, (b, smax, HKV, DH), dtype)
+                kp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
+                vp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
+                for name, out, expect in (
+                        ("ragged_decode",
+                         ops.flash_decode_attention(q, k, v, cur,
+                                                    softcap=softcap),
+                         ref.ragged_decode_ref(q, k, v, cur,
+                                               softcap=softcap)),
+                        ("paged_decode",
+                         ops.paged_flash_decode_attention(
+                             q, kp, vp, pt, cur, softcap=softcap),
+                         ref.paged_decode_ref(q, kp, vp, pt, cur,
+                                              softcap=softcap))):
+                    torch.cuda.synchronize()
+                    err = (out.float() - expect.float()).abs().max().item()
+                    tol = tolerance(expect)
+                    rows = row_error(out, expect) \
+                        if dtype == torch.bfloat16 else 0.0
+                    log(f"  {name:13s} {dtype} softcap={softcap}: max abs "
+                        f"err {err:.3e} (tolerance {tol:.3e})"
+                        + (f", row-scaled err {rows:.4f} (limit "
+                           f"{BF16_REL_TOL:.4f})" if rows else "")
+                        + (f"; {n_pages}-page pool, fragmented table with "
+                           f"sentinels" if name == "paged_decode" else ""))
+                    if not (err <= tol and rows <= BF16_REL_TOL):
+                        bad.append((name, smax, str(dtype), softcap, err,
+                                    rows))
+                # the same cache, contiguous and scattered over pages: both
+                # kernels cut and walk keys the same way, so outputs are
+                # equal
+                perm = torch.randperm(b * max_pages, generator=gen,
+                                      device="cuda")
+                pages = torch.empty((b * max_pages, ps, HKV, DH),
+                                    dtype=dtype, device="cuda")
+                pages[perm] = k.reshape(b * max_pages, ps, HKV, DH)
+                vpages = torch.empty_like(pages)
+                vpages[perm] = v.reshape(b * max_pages, ps, HKV, DH)
+                table = perm.reshape(b, max_pages).int()
+                a = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
+                c = ops.paged_flash_decode_attention(q, pages, vpages, table,
+                                                     cur, softcap=softcap)
+                same = torch.equal(a, c)
+                log(f"  contiguous == paged on the same cache: {same}")
+                if not same:
+                    bad.append(("paged == contiguous", smax, str(dtype),
+                                softcap, None, None))
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{bad}")
@@ -708,6 +787,8 @@ def serve_long_prompts(cfg, params, card: str):
         if counts != expect:
             bad.append(f"{name}: launches {counts} != {expect}")
         runs[name] = {"outs": outs, "launches": counts["flash_attention"],
+                      "decode_launches": counts["paged_decode" if pages
+                                                else "ragged_decode"],
                       "tok_s": tok / dec_s}
         del eng
     total = sum(map(len, runs["contiguous"]["outs"]))
@@ -888,34 +969,65 @@ def _time_ms(fn, n_layers, iters=10):
     return start.elapsed_time(end) / (iters * n_layers)
 
 
-def time_kernels(runs, lengths):
-    """Each kernel at phase 4's shapes: bf16, B=8 rows mid-decode (cur =
-    prompt length + MAX_NEW // 2), one cache per layer of the 24."""
+def _time_graph_ms(fn, n_layers, iters=10):
+    """Mean ms per call of one sweep of ``n_layers`` calls captured in a
+    CUDA graph and replayed ``iters`` times: the card's time for the calls
+    without the host's dispatch of each."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for layer in range(n_layers):
+            fn(layer)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for layer in range(n_layers):
+            fn(layer)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * n_layers)
+
+
+def _decode_case(shape, smax, cur_list, launches, n_layers=24):
+    """Both decode kernels at one cache shape: bf16, B rows at lengths
+    ``cur_list``, one cache per layer (contiguous, and the same values
+    scattered over scrambled pages of 64); each checked layer by layer
+    against its plain version (per case and per row), then timed eagerly
+    and as a CUDA graph beside its plain version and SDPA.  -> {kernel:
+    case dict}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    n_layers = 24
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    b = len(cur_list)
+    gen = torch.Generator(device="cuda").manual_seed(smax)
     dt = torch.bfloat16
-    cur_list = [n + MAX_NEW // 2 for n in lengths[:B]]
     cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
-    q = _rand(gen, (B, 1, HKV * G, DH), dt)
-    caches = [(_rand(gen, (B, SMAX, HKV, DH), dt),
-               _rand(gen, (B, SMAX, HKV, DH), dt)) for _ in range(n_layers)]
+    q = _rand(gen, (b, 1, HKV * G, DH), dt)
+    caches = [(_rand(gen, (b, smax, HKV, DH), dt),
+               _rand(gen, (b, smax, HKV, DH), dt)) for _ in range(n_layers)]
     ps = 64
-    max_pages = SMAX // ps
-    perm = torch.randperm(B * max_pages, generator=gen, device="cuda")
-    table = perm.reshape(B, max_pages).int()
+    max_pages = smax // ps
+    perm = torch.randperm(b * max_pages, generator=gen, device="cuda")
+    table = perm.reshape(b, max_pages).int()
     paged = []
     for k, v in caches:
         kp, vp = torch.empty_like(k), torch.empty_like(v)
-        kp.view(B * max_pages, ps, HKV, DH)[perm] = \
-            k.reshape(B * max_pages, ps, HKV, DH)
-        vp.view(B * max_pages, ps, HKV, DH)[perm] = \
-            v.reshape(B * max_pages, ps, HKV, DH)
-        paged.append((kp.view(B * max_pages, ps, HKV, DH),
-                      vp.view(B * max_pages, ps, HKV, DH)))
-    mask = (torch.arange(SMAX, device="cuda")[None, :]
+        kp.view(b * max_pages, ps, HKV, DH)[perm] = \
+            k.reshape(b * max_pages, ps, HKV, DH)
+        vp.view(b * max_pages, ps, HKV, DH)[perm] = \
+            v.reshape(b * max_pages, ps, HKV, DH)
+        paged.append((kp.view(b * max_pages, ps, HKV, DH),
+                      vp.view(b * max_pages, ps, HKV, DH)))
+    mask = (torch.arange(smax, device="cuda")[None, :]
             <= cur[:, None])[:, None, None, :]
     qs = q.transpose(1, 2)                         # (B, Hq, 1, dh)
 
@@ -924,12 +1036,13 @@ def time_kernels(runs, lengths):
             qs, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
             enable_gqa=True)
 
-    n_keys = sum(min(c, SMAX - 1) + 1 for c in cur_list)
+    n_keys = sum(min(c, smax - 1) + 1 for c in cur_list)
     elt = q.element_size()
     kv_bytes = 2 * n_keys * HKV * DH * elt
     io_bytes = 2 * q.numel() * elt + cur.numel() * 4
     flops = 4 * n_keys * HKV * G * DH
-    out_lines = []
+    chunk, n_split = ops.decode_splits(smax)
+    cases = {}
     for name in ("ragged_decode", "paged_decode"):
         if name == "ragged_decode":
             def kern(i):
@@ -946,37 +1059,72 @@ def time_kernels(runs, lengths):
             def plain(i):
                 return ref.paged_decode_ref(q, *paged[i], table, cur)
             extra = table.numel() * 4
-        err, tol, bad = 0.0, float("inf"), []
+        err, tol, rows, bad = 0.0, float("inf"), 0.0, []
         for i in range(n_layers):
-            expect = plain(i)
-            e = (kern(i).float() - expect.float()).abs().max().item()
-            err, tol = max(err, e), min(tol, tolerance(expect))
-            if not e <= tolerance(expect):
-                bad.append((i, e, tolerance(expect)))
+            expect, out = plain(i), kern(i)
+            e = (out.float() - expect.float()).abs().max().item()
+            r = row_error(out, expect)
+            err, tol, rows = max(err, e), min(tol, tolerance(expect)), \
+                max(rows, r)
+            if not (e <= tolerance(expect) and r <= BF16_REL_TOL):
+                bad.append((i, e, tolerance(expect), r))
         if bad:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"(layer, err, tolerance): {bad}")
+            raise AssertionError(f"{name} at {shape} disagrees with its "
+                                 f"plain version (layer, err, tolerance, "
+                                 f"row-scaled err): {bad}")
         lib_err = (sdpa(*caches[0]).transpose(1, 2).float()
                    - plain(0).float()).abs().max().item()
         ms = _time_ms(kern, n_layers)
+        graph_ms = _time_graph_ms(kern, n_layers)
         plain_ms = _time_ms(plain, n_layers)
         lib_ms = _time_ms(lambda i: sdpa(*caches[i]), n_layers)
+        lib_graph_ms = _time_graph_ms(lambda i: sdpa(*caches[i]), n_layers)
         t_bytes = (kv_bytes + io_bytes + extra) / MEM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        entry = dict(name=name, **KERNELS[name],
-                     launches=runs[name]["launches"], max_abs_err=err,
-                     ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                     library_ms=lib_ms)
-        out_lines.append(entry)
-        log(f"{name}: {ms * 1e3:.1f} us/call, bound "
-            f"{entry['bound_ms'] * 1e3:.2f} "
-            f"us ({entry['bound_by']}: {kv_bytes / 1e6:.2f} MB of K/V), "
-            f"plain {plain_ms * 1e3:.1f} us, SDPA {lib_ms * 1e3:.1f} us "
-            f"(on the contiguous cache; max abs err vs plain {lib_err:.3e}), "
-            f"max abs err {err:.3e} (tolerance {tol:.3e} or more); "
-            f"cur {cur_list}")
-    return out_lines
+        case = dict(shape=shape, launches=launches[name], max_abs_err=err,
+                    max_row_rel_err=rows, ms=ms, graph_ms=graph_ms,
+                    plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=lib_ms, library_graph_ms=lib_graph_ms)
+        cases[name] = case
+        log(f"{name} at {shape}: {ms * 1e3:.2f} us/call eager, "
+            f"{graph_ms * 1e3:.2f} us/call in a CUDA graph ({n_split} "
+            f"splits of {chunk} keys), bound {case['bound_ms'] * 1e3:.2f} us "
+            f"({case['bound_by']}: {kv_bytes / 1e6:.2f} MB of K/V), plain "
+            f"{plain_ms * 1e3:.1f} us, SDPA {lib_ms * 1e3:.1f} us eager, "
+            f"{lib_graph_ms * 1e3:.1f} us in a graph (on the contiguous "
+            f"cache; max abs err vs plain "
+            f"{lib_err:.3e}), max abs err {err:.3e} (tolerance {tol:.3e} or "
+            f"more), row-scaled err {rows:.4f} (limit {BF16_REL_TOL:.4f}); "
+            f"launches on the main path {launches[name]}; cur {cur_list}")
+    del caches, paged
+    return cases
+
+
+def time_kernels(runs, lengths, long_runs):
+    """Both decode kernels at the main path's two cache shapes, bf16, B=8,
+    one cache per layer of the 24: phase 4's (Smax 1024, cur = prompt
+    length + MAX_NEW // 2) and phase 5's (Smax 4096, cur = long prompt +
+    LONG_MAX_NEW // 2).  Each entry's own numbers are the first shape's;
+    ``cases`` holds both."""
+    timed = _decode_case(
+        f"B={B}, Smax={SMAX}, Hkv={HKV}, G={G}, dh={DH} bf16", SMAX,
+        [n + MAX_NEW // 2 for n in lengths[:B]],
+        {k: runs[k]["launches"] for k in ("ragged_decode", "paged_decode")})
+    long = _decode_case(
+        f"B={len(LONG_PROMPTS)}, Smax={LONG_MAX_LEN}, Hkv={HKV}, G={G}, "
+        f"dh={DH} bf16", LONG_MAX_LEN,
+        [n + LONG_MAX_NEW // 2 for n in LONG_PROMPTS],
+        {"ragged_decode": long_runs["contiguous"]["decode_launches"],
+         "paged_decode": long_runs["paged"]["decode_launches"]})
+    entries = []
+    for name in ("ragged_decode", "paged_decode"):
+        top = {k: v for k, v in timed[name].items()
+               if k not in ("shape", "max_row_rel_err", "graph_ms",
+                            "library_graph_ms")}
+        entries.append(dict(name=name, **KERNELS[name], **top,
+                            cases=[timed[name], long[name]]))
+    return entries
 
 
 def time_rglru(launches: int):
@@ -1162,10 +1310,10 @@ def main() -> int:
     phase("recurrentgemma smoke config at fp32: card vs CPU",
           smoke_recurrentgemma_card_vs_cpu)
     kernels = rg_kernel = flash = None
-    if served is not None:
+    if served is not None and long is not None:
         runs, prompts = served[:2]
-        kernels = phase("kernel timing", time_kernels, runs,
-                        [len(p) for p in prompts])
+        kernels = phase("decode kernel timing", time_kernels, runs,
+                        [len(p) for p in prompts], long)
     if long is not None and rg is not None:
         flash = phase("flash_attention timing", time_flash, {
             "qwen2-0.5b": long["one stream"]["launches"],

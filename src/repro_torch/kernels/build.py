@@ -38,10 +38,10 @@ PACKAGES = {
 }
 #: kernel name -> C entry point's argument types (see its source)
 SIGNATURES = {
-    "ragged_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _L, _L, _L, _L, _L, _L, _F, _F, _I, _P],
-    "paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _L, _L, _L, _L, _L, _L, _F, _F, _I, _P],
+    "ragged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _L, _L, _L, _L, _L, _L, _F, _F, _I, _I, _I, _I, _P],
+    "paged_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _L, _L, _L, _L, _L, _L, _F, _F, _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _F,
                         _I, _I, _I, _P],

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel ragged_decode_bhsd / _ragged_decode_kernel
 // (src/repro/kernels/flash_attention/kernel.py:132, :87).  Batch row b
 // attends to cache positions [0, cur[b]]; rows with cur[b] >= Smax are
-// retired slots and attend to the whole cache, and the key loop is
+// retired slots and attend to the whole cache, and the key range is
 // clamped to Smax-1 so nothing is read out of bounds.  The cache is read
 // in its native (B, Smax, Hkv, dh) layout through strides: the TPU
 // wrapper's per-call transpose into heads-major layout is not ported.
@@ -15,63 +15,95 @@ namespace {
 
 template <typename T>
 struct ContigRows {
-  const T* base;      // &cache[b, 0, hk, 0]
-  long long s_seq;    // elements between consecutive positions
-  __device__ __forceinline__ const T* operator()(int t) const {
-    return base + (long long)t * s_seq;
+  const T* k;         // &k_cache[b, 0, hk, 0]
+  const T* v;
+  long long k_ss;     // elements between consecutive positions
+  long long v_ss;
+  __device__ __forceinline__ void locate(int t, const T*& kr,
+                                         const T*& vr) const {
+    kr = k + (long long)t * k_ss;
+    vr = v + (long long)t * v_ss;
   }
 };
 
-template <typename T>
+// DHC > 0: the tensor-core body (bf16) with dh rounded up to DHC; 0: SIMT.
+template <typename T, int VEC, int DHC>
 __global__ void __launch_bounds__(decode_attn::kThreads)
-ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ cur,
-                     T* __restrict__ out, int hkv, int g, int dh, int smax,
-                     long long k_sb, long long k_ss, long long k_sh,
-                     long long v_sb, long long v_ss, long long v_sh,
-                     float scale, float softcap) {
-  extern __shared__ float smem[];
-  const int bh = blockIdx.x;
+ragged_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ cur,
+                    int hkv, int g, int dh, int smax, long long k_sb,
+                    long long k_ss, long long k_sh, long long v_sb,
+                    long long v_ss, long long v_sh, float scale,
+                    float softcap, int chunk, int n_split,
+                    float* __restrict__ ml, float* __restrict__ acc) {
+  extern __shared__ __align__(16) float smem[];
+  const int bh = blockIdx.x, s = blockIdx.y, z = blockIdx.z;
   const int b = bh / hkv, hk = bh - b * hkv;
-  const int c = cur[b];
-  const int n_keys = c < 0 ? 0 : min(c, smax - 1) + 1;
-  ContigRows<T> k_row{k + b * k_sb + hk * k_sh, k_ss};
-  ContigRows<T> v_row{v + b * v_sb + hk * v_sh, v_ss};
-  const size_t row0 = (size_t)bh * g * dh;
-  decode_attn::decode_block<T>(q + row0, out + row0, k_row, v_row, n_keys,
-                               g, dh, scale, softcap, smem);
+  const int n_keys = decode_attn::live_keys(cur[b], smax);
+  const int c0 = s * chunk;
+  if (c0 >= n_keys) return;
+  const int c1 = min(c0 + chunk, n_keys);
+  constexpr int kRows = DHC ? decode_attn::kMmaRows : decode_attn::kWarps;
+  const int r0 = z * kRows;
+  const ContigRows<T> rows{k + b * k_sb + hk * k_sh,
+                           v + b * v_sb + hk * v_sh, k_ss, v_ss};
+  const size_t p0 = ((size_t)bh * n_split + s) * g + r0;
+  if constexpr (DHC > 0)
+    decode_attn::mma_block<DHC>(
+        q + ((size_t)bh * g + r0) * dh, min(kRows, g - r0), rows, c0, c1, dh,
+        scale, softcap, ml + p0 * 2, acc + p0 * dh, smem);
+  else
+    decode_attn::split_block<T, VEC>(
+        q + ((size_t)bh * g + r0) * dh, min(kRows, g - r0), rows, c0, c1, dh,
+        scale, softcap, ml + p0 * 2, acc + p0 * dh, smem);
 }
 
-template <typename T>
+template <typename T, int VEC, int DHC>
 int run(const void* q, const void* k, const void* v, const void* cur,
-        void* out, int b, int hkv, int g, int dh, int smax, long long k_sb,
-        long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-        long long v_sh, float scale, float softcap, void* stream) {
-  return decode_attn::launch(
-      ragged_decode_kernel<T>, b * hkv, decode_attn::smem_bytes(g, dh),
-      stream, (const T*)q, (const T*)k, (const T*)v, (const int*)cur,
-      (T*)out, hkv, g, dh, smax, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-      softcap);
+        void* out, void* ws, int b, int hkv, int g, int dh, int smax,
+        long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+        long long v_ss, long long v_sh, float scale, float softcap,
+        int chunk, int n_split, void* stream) {
+  return decode_attn::launch_pair<T>(
+      ragged_split_kernel<T, VEC, DHC>, decode_attn::block_rows(DHC),
+      decode_attn::block_smem(DHC, dh, sizeof(T)), b, hkv, g, dh, smax, chunk,
+      n_split, (const int*)cur, (float*)ws, (T*)out, stream, (const T*)q,
+      (const T*)k, (const T*)v, (const int*)cur, hkv, g, dh, smax, k_sb,
+      k_ss, k_sh, v_sb, v_ss, v_sh, scale, softcap, chunk, n_split);
+}
+
+
+// The body a call runs (decode_common.cuh, mma_cap): bf16 rows that allow
+// 16-byte loads with dh <= 64 on the tensor cores, the rest on the SIMT
+// body, with 16-byte or element loads.
+using Run = decltype(&run<float, 4, 0>);
+Run pick(int dtype, int wide, int dh) {
+  using bf16 = __nv_bfloat16;
+  if (decode_attn::mma_cap(dtype, wide, dh)) return &run<bf16, 8, 64>;
+  if (dtype == 0) return wide ? &run<float, 4, 0> : &run<float, 1, 0>;
+  return wide ? &run<bf16, 8, 0> : &run<bf16, 1, 0>;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Launches on the calling thread's
-// current device, which the caller sets to the tensors' own.  Returns a
+// dtype: 0 = float32, 1 = bfloat16.  wide: 1 if dh, every stride and the
+// K/V data allow 16-byte loads.  ws: the fp32 workspace of the split
+// partials, b * hkv * n_split * g * (dh + 2) floats.  Launches the split
+// and the combine kernel on `stream`, on the calling thread's current
+// device, which the caller sets to the tensors' own.  Returns a
 // cudaError_t (0 = launched).
 extern "C" int ragged_decode(const void* q, const void* k, const void* v,
-                             const void* cur, void* out, int b, int hkv,
-                             int g, int dh, int smax, long long k_sb,
-                             long long k_ss, long long k_sh, long long v_sb,
-                             long long v_ss, long long v_sh, float scale,
-                             float softcap, int dtype,
+                             const void* cur, void* out, void* ws, int b,
+                             int hkv, int g, int dh, int smax,
+                             long long k_sb, long long k_ss, long long k_sh,
+                             long long v_sb, long long v_ss, long long v_sh,
+                             float scale, float softcap, int chunk,
+                             int n_split, int wide, int dtype,
                              void* stream) {
-  if (dtype == 0)
-    return run<float>(q, k, v, cur, out, b, hkv, g, dh, smax, k_sb, k_ss,
-                      k_sh, v_sb, v_ss, v_sh, scale, softcap, stream);
-  if (dtype == 1)
-    return run<__nv_bfloat16>(q, k, v, cur, out, b, hkv, g, dh, smax, k_sb,
-                              k_ss, k_sh, v_sb, v_ss, v_sh, scale, softcap,
-                              stream);
-  return (int)cudaErrorInvalidValue;
+  if (dh < 1 || dh > decode_attn::kMaxDh || chunk < 1 || n_split < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return pick(dtype, wide, dh)(
+      q, k, v, cur, out, ws, b, hkv, g, dh, smax, k_sb, k_ss, k_sh, v_sb,
+      v_ss, v_sh, scale, softcap, chunk, n_split, stream);
 }

@@ -7,7 +7,8 @@ signatures (``repro.kernels.flash_attention.ops``, without
 launches its hand-written CUDA kernel on the current stream, or raises:
 there is no fallback.  For a CPU tensor each runs its plain PyTorch
 version (``ref.py``).  Each wrapper counts its kernel launches in
-``LAUNCHES``.
+``LAUNCHES``: one per wrapper call, though a decode call is two CUDA
+launches (the split pass and the combine pass).
 """
 
 from __future__ import annotations
@@ -24,8 +25,19 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
 LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_G_DH = 4096      # g * dh floats per block in shared memory (x2)
-_MAX_DH = 256         # the prefill kernel's largest head_dim tile
+_MAX_DH = 256         # the largest head_dim of every attention kernel
+#: keys of a row that one split block of a decode kernel owns
+DECODE_CHUNK = 128
+
+
+def decode_splits(capacity: int):
+    """-> (keys per split, splits) of a decode call over a cache of
+    ``capacity`` keys a row (Smax, or max_pages * page_size).  Only the
+    capacity decides, never a row's length, so the grid needs no host
+    sync and a CUDA graph can capture the launch; chunk boundaries depend
+    on the key index alone, so both decode kernels sum every key in the
+    same order."""
+    return DECODE_CHUNK, max(1, -(-capacity // DECODE_CHUNK))
 
 
 def reset_launch_counts() -> None:
@@ -60,14 +72,31 @@ def _check_common(q, k, v, cur_index, name):
     if k.shape[3] != dh or hq % hkv:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs k "
                          f"{tuple(k.shape)}")
-    if (hq // hkv) * dh > _MAX_G_DH:
-        raise ValueError(f"{name}: G*dh = {(hq // hkv) * dh} exceeds "
-                         f"{_MAX_G_DH}")
+    if not 0 < dh <= _MAX_DH:
+        raise ValueError(f"{name}: needs 0 < dh <= {_MAX_DH}, got {dh}")
     if cur_index.shape != (b,) or cur_index.dtype != torch.int32 \
             or not cur_index.is_contiguous():
         raise ValueError(f"{name}: cur_index must be a contiguous ({b},) "
                          f"int32 tensor")
     return b, hq // hkv, hkv, dh
+
+
+def _decode_launch_args(q, k, v, capacity):
+    """The arguments every decode launch shares: the output, the fp32
+    workspace of the split partials, k's and v's strides over their first
+    three dimensions (0 for a dimension of size 1, which is never stepped
+    over), the chunk, the split count and whether q, K and V allow
+    16-byte loads (then bf16 with dh <= 64 runs on the tensor cores)."""
+    b, _, hq, dh = q.shape
+    chunk, n_split = decode_splits(capacity)
+    ws = torch.empty(b * hq * n_split * (dh + 2), dtype=torch.float32,
+                     device=q.device)
+    strides = [s if n > 1 else 0 for t in (k, v)
+               for n, s in zip(t.shape[:3], t.stride()[:3])]
+    vec = 16 // q.element_size()
+    wide = dh % vec == 0 and all(s % vec == 0 for s in strides) and \
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return torch.empty_like(q), ws, strides, chunk, n_split, int(wide)
 
 
 def flash_decode_attention(q, k_cache, v_cache, cur_index, *,
@@ -83,14 +112,15 @@ def flash_decode_attention(q, k_cache, v_cache, cur_index, *,
     b, g, hkv, dh = _check_common(q, k_cache, v_cache, cur_index,
                                   "ragged_decode")
     lib = build.load("ragged_decode")
-    out = torch.empty_like(q)
+    smax = k_cache.shape[1]
+    out, ws, strides, chunk, n_split, wide = _decode_launch_args(
+        q, k_cache, v_cache, smax)
     with torch.cuda.device(q.device):       # the launch uses the current device
         code = lib.ragged_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            cur_index.data_ptr(), out.data_ptr(), b, hkv, g, dh,
-            k_cache.shape[1], k_cache.stride(0), k_cache.stride(1),
-            k_cache.stride(2), v_cache.stride(0), v_cache.stride(1),
-            v_cache.stride(2), dh ** -0.5, float(softcap), _DTYPES[q.dtype],
+            cur_index.data_ptr(), out.data_ptr(), ws.data_ptr(), b, hkv, g,
+            dh, smax, *strides, dh ** -0.5, float(softcap), chunk, n_split,
+            wide, _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "ragged_decode", code)
     LAUNCHES["ragged_decode"] += 1
@@ -116,15 +146,17 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table,
         raise ValueError("paged_decode: page_table must be a contiguous "
                          f"({b}, max_pages) int32 tensor on {q.device}")
     lib = build.load("paged_decode")
-    out = torch.empty_like(q)
+    n_pages, ps = k_pages.shape[:2]
+    max_pages = page_table.shape[1]
+    out, ws, strides, chunk, n_split, wide = _decode_launch_args(
+        q, k_pages, v_pages, max_pages * ps)
     with torch.cuda.device(q.device):       # the launch uses the current device
         code = lib.paged_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), cur_index.data_ptr(), out.data_ptr(), b,
-            hkv, g, dh, k_pages.shape[1], k_pages.shape[0],
-            page_table.shape[1], k_pages.stride(0), k_pages.stride(1),
-            k_pages.stride(2), v_pages.stride(0), v_pages.stride(1),
-            v_pages.stride(2), dh ** -0.5, float(softcap), _DTYPES[q.dtype],
+            page_table.data_ptr(), cur_index.data_ptr(), out.data_ptr(),
+            ws.data_ptr(), b, hkv, g, dh, ps, n_pages, max_pages, *strides,
+            dh ** -0.5, float(softcap), chunk, n_split, wide,
+            _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "paged_decode", code)
     LAUNCHES["paged_decode"] += 1

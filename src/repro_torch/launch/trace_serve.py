@@ -58,9 +58,12 @@ DECODE_CALLS = 4
 #: kernels listed per window
 TOP = 8
 
-#: the port's hand-written kernels, by a part of their device names
+#: the port's hand-written kernels, by a part of their device names; a
+#: decode wrapper call runs its split kernel and the combine kernel both
+#: decode libraries share
 PORT_KERNELS = ("rglru_scan_kernel", "flash_attention_kernel",
-                "ragged_decode_kernel", "paged_decode_kernel")
+                "ragged_split_kernel", "paged_split_kernel",
+                "decode_combine_kernel")
 
 
 def _window(name, prof, host_s, top):

@@ -65,7 +65,8 @@ def _rand(gen, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("g,dh", [(2, 16), (3, 20), (7, 64), (1, 128)])
+@pytest.mark.parametrize("g,dh", [(2, 16), (3, 20), (7, 64), (1, 128),
+                                  (2, 256)])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_ragged_kernel_matches_plain(cuda, g, dh, dtype, softcap):
     gen = torch.Generator(device="cuda").manual_seed(g * dh)
@@ -105,24 +106,129 @@ def test_paged_kernel_matches_plain(cuda, g, dh, ps, dtype):
     _assert_within_tolerance(out, expect)
 
 
-def test_paged_equals_contiguous_bit_for_bit(cuda):
-    """Both kernels walk keys in the same order: the same cache through
-    either gives identical outputs."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    b, hkv, g, dh, smax, ps = 3, 2, 7, 64, 256, 32
-    cur = torch.tensor([5, 200, 255], dtype=torch.int32, device=cuda)
-    q = _rand(gen, (b, 1, hkv * g, dh), torch.bfloat16)
-    k = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
-    v = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
+def _scatter_pages(gen, k, v, ps):
+    """The contiguous cache (B, Smax, Hkv, dh) scattered over scrambled
+    pages: -> (k pages, v pages, page table)."""
+    b, smax, hkv, dh = k.shape
     n = b * smax // ps
-    perm = torch.randperm(n, generator=gen, device=cuda)
+    perm = torch.randperm(n, generator=gen, device="cuda")
     kp, vp = torch.empty_like(k).view(n, ps, hkv, dh), \
         torch.empty_like(v).view(n, ps, hkv, dh)
     kp[perm], vp[perm] = k.reshape(n, ps, hkv, dh), v.reshape(n, ps, hkv, dh)
-    table = perm.reshape(b, smax // ps).int()
-    assert torch.equal(ops.flash_decode_attention(q, k, v, cur),
-                       ops.paged_flash_decode_attention(q, kp, vp, table,
-                                                        cur))
+    return kp, vp, perm.reshape(b, smax // ps).int()
+
+
+def test_paged_equals_contiguous_bit_for_bit(cuda):
+    """Both kernels cut keys into the same chunks and walk them in the
+    same order: the same cache through either gives identical outputs, at
+    a short cache and at qwen2-0.5b's long one (Smax 4096: 32 splits a
+    row) over pages of 16 and 64."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, hkv, g, dh = 3, 2, 7, 64
+    chunk = ops.decode_splits(1)[0]
+    for smax, ps, lengths in ((256, 32, [5, 200, 255]),
+                              (4096, 16, [chunk, 3000, 4095]),
+                              (4096, 64, [chunk - 1, 2049, 4096])):
+        cur = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        q = _rand(gen, (b, 1, hkv * g, dh), torch.bfloat16)
+        k = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
+        v = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
+        kp, vp, table = _scatter_pages(gen, k, v, ps)
+        assert torch.equal(ops.flash_decode_attention(q, k, v, cur),
+                           ops.paged_flash_decode_attention(q, kp, vp, table,
+                                                            cur)), (smax, ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_decode_kernels_match_plain_at_long_caches(cuda, dtype, softcap):
+    """qwen2-0.5b's long caches (Smax 4096, G 7, dh 64): rows spanning
+    many splits, ending on both sides of chunk edges, a retired row;
+    bf16 held per case and per row."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, hkv, g, dh, smax, ps = 8, 2, 7, 64, 4096, 64
+    chunk = ops.decode_splits(smax)[0]
+    cur = torch.tensor([chunk - 1, chunk, chunk + 1, 1039, 2047, 3000,
+                        4016, 5000], dtype=torch.int32, device=cuda)
+    q = _rand(gen, (b, 1, hkv * g, dh), dtype)
+    k = _rand(gen, (b, smax, hkv, dh), dtype)
+    v = _rand(gen, (b, smax, hkv, dh), dtype)
+    out = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
+    torch.cuda.synchronize()
+    expect = ref.ragged_decode_ref(q, k, v, cur, softcap=softcap)
+    _assert_within_tolerance(out, expect)
+    _assert_rows_within_tolerance(out, expect)
+    kp, vp, table = _scatter_pages(gen, k, v, ps)
+    out = ops.paged_flash_decode_attention(q, kp, vp, table, cur,
+                                           softcap=softcap)
+    torch.cuda.synchronize()
+    expect = ref.paged_decode_ref(q, kp, vp, table, cur, softcap=softcap)
+    _assert_within_tolerance(out, expect)
+    _assert_rows_within_tolerance(out, expect)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernels_read_unaligned_views(cuda, dtype):
+    """K/V as views one element into a wider buffer (not 16-byte aligned)
+    and q in bf16 with dh 64: the wrappers take the element loads, and
+    the result is the plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, hkv, g, dh, smax, ps = 4, 2, 7, 64, 512, 16
+    cur = torch.tensor([5, 127, 128, 511], dtype=torch.int32, device=cuda)
+    q = _rand(gen, (b, 1, hkv * g, dh), dtype)
+    flat = _rand(gen, (2, b * smax * hkv * dh + 1), dtype)
+    k = flat[0, 1:].view(b, smax, hkv, dh)
+    v = flat[1, 1:].view(b, smax, hkv, dh)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    out = ops.flash_decode_attention(q, k, v, cur)
+    torch.cuda.synchronize()
+    expect = ref.ragged_decode_ref(q, k, v, cur)
+    _assert_within_tolerance(out, expect)
+    _assert_rows_within_tolerance(out, expect)
+    n = b * smax // ps
+    table = torch.randperm(n, generator=gen, device=cuda).reshape(
+        b, smax // ps).int()
+    kp, vp = k.reshape(n, ps, hkv, dh), v.reshape(n, ps, hkv, dh)
+    out = ops.paged_flash_decode_attention(q, kp, vp, table, cur)
+    torch.cuda.synchronize()
+    expect = ref.paged_decode_ref(q, kp, vp, table, cur)
+    _assert_within_tolerance(out, expect)
+    _assert_rows_within_tolerance(out, expect)
+
+
+def test_decode_wrappers_replay_in_a_cuda_graph(cuda):
+    """One call of each decode wrapper captured in a CUDA graph: with cur
+    changed in place, a replay gives the eager result bit for bit, so the
+    launch (grid, split count, workspace) does not depend on cur."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    b, hkv, g, dh, smax, ps = 4, 2, 7, 64, 1024, 16
+    q = _rand(gen, (b, 1, hkv * g, dh), torch.bfloat16)
+    k = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
+    v = _rand(gen, (b, smax, hkv, dh), torch.bfloat16)
+    kp, vp, table = _scatter_pages(gen, k, v, ps)
+    cur = torch.tensor([3, 100, 500, 1000], dtype=torch.int32, device=cuda)
+    calls = {
+        "ragged": lambda: ops.flash_decode_attention(q, k, v, cur),
+        "paged": lambda: ops.paged_flash_decode_attention(q, kp, vp, table,
+                                                          cur),
+    }
+    for name, call in calls.items():
+        cur.copy_(torch.tensor([3, 100, 500, 1000]))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()                                  # warm up off capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        for lengths in ([1023, 0, 128, 5000], [127, 129, 700, 1]):
+            cur.copy_(torch.tensor(lengths))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, call()), (name, lengths)
 
 
 def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
