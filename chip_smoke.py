@@ -17,7 +17,8 @@ Phases (any failure exits non-zero, without the final result line):
    each decode library must hold its five split instantiations (the SIMT
    body in fp32 and bf16 with 16-byte and element loads, the bf16
    tensor-core body at dh up to 64) and its two combine
-   instantiations, none spilling;
+   instantiations, none spilling; the RG-LRU library both passes of its
+   chunked scan at the four (a, x) dtype pairs, none spilling;
 3. each decode kernel against its plain PyTorch version on the card, at
    qwen2-0.5b's decode heads (Hkv=2, G=7, dh=64) over a cache of 1024
    and one of 4096 keys, fp32 and bf16 (bf16 also row by row), softcap 0
@@ -27,9 +28,10 @@ Phases (any failure exits non-zero, without the final result line):
    paged bit for bit at both caches; then the
    RG-LRU scan against its plain version at T in {1, 7, 2048, 3001}, C in
    {64, 2560}, fp32 and bf16, with ``a`` near 0.999 so the carry grows,
-   and on strided views; then the flash kernel against its plain version
-   over the reference's sweep (dh 8 to 256, G 1 to 10, windows 0, 16, 64
-   and 2048, non-causal with Sk != Sq, softcap 10), at the lengths 1, 7,
+   and on strided views, two calls equal bit for bit; then the flash
+   kernel against its plain version over the reference's sweep (dh 8 to
+   256, G 1 to 10, windows 0, 16, 64 and 2048, non-causal with Sk != Sq,
+   softcap 10), at the lengths 1, 7,
    1023, 1024, 1500 and 3001, at lengths on both sides of the tensor-core
    body's tiles (15 to 129), a window ending mid-tile, and on strided
    views, fp32 and bf16 (bf16 held to its limit per case and per row);
@@ -67,9 +69,10 @@ Phases (any failure exits non-zero, without the final result line):
    4096 keys; the flash kernel at both models' prefill shapes and at
    qwen2-0.5b's batched admission of 8 x 4096 rows; held to the
    tolerance, bf16 attention also row by row, each row's error scaled by
-   its own max |plain|), time per call (the decode kernels also replayed
-   in a CUDA graph, without the host's dispatch), its bound, the plain
-   version's time and, for attention,
+   its own max |plain|; the RG-LRU scan at (1, T, 2560) fp32 for T 2048
+   and 3500), time per call (the decode kernels and the RG-LRU scan also
+   replayed in a CUDA graph, without the host's dispatch), its bound, the
+   plain version's time and, for attention,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls;
    no PyTorch call computes a linear recurrence), as one JSON line.
 
@@ -248,6 +251,27 @@ def _decode_build_gate(name: str, item: dict, lib) -> None:
         raise AssertionError(f"{name} build: {faults}")
 
 
+def _rglru_build_gate(item: dict) -> None:
+    """Print each pass's instantiations' registers and spills; fail on a
+    spill or unless both passes have all four (a, x) dtype pairs."""
+    found, faults = {"reduce": 0, "scan": 0}, []
+    for fn, r in sorted(_ptxas_report(item["ptxas"]).items()):
+        m = re.search(r"rglru_chunk_(reduce|scan)_kernelI(\w+?)EEv", fn)
+        if not m:
+            continue
+        found[m.group(1)] += 1
+        log(f"    rglru_scan pass {m.group(1)} <{m.group(2)}>: "
+            f"{r.get('registers')} registers, {r.get('stack_frame')} bytes "
+            f"of stack, spill stores {r.get('spill_stores')} / loads "
+            f"{r.get('spill_loads')} bytes")
+        if r.get("spill_stores") != 0 or r.get("spill_loads") != 0:
+            faults.append(f"pass {m.group(1)} <{m.group(2)}> spills")
+    if found != {"reduce": 4, "scan": 4}:
+        faults.append(f"instantiations per pass {found}, expected 4 each")
+    if faults:
+        raise AssertionError(f"rglru_scan build: {faults}")
+
+
 def build_kernels():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -260,9 +284,8 @@ def build_kernels():
         if name in ("ragged_decode", "paged_decode"):
             _decode_build_gate(name, item, lib)
             continue
-        if name != "flash_attention":
-            for fn, r in _ptxas_report(item["ptxas"]).items():
-                log(f"    {fn[:60]}: {r}")
+        if name == "rglru_scan":
+            _rglru_build_gate(item)
             continue
         # the flash library: one line per instantiation, with its
         # tensor-core instructions
@@ -463,15 +486,19 @@ def check_rglru() -> None:
             a, x = _rglru_inputs(gen, 2, t, c, dtype)
             a_in, x_in = a, x
         out = ops.rglru_scan(a_in, x_in)
+        again = ops.rglru_scan(a_in, x_in)
         torch.cuda.synchronize()
         expect = ref.rglru_scan_ref(a, x)
         err = (out.float() - expect.float()).abs().max().item()
         tol = rglru_tolerance(expect)
-        log(f"rglru_scan {dtype} B=2 T={t} C={c}: max abs err {err:.3e} "
-            f"(tolerance {tol:.3e}; max |plain| "
-            f"{expect.float().abs().max().item():.1f})")
+        chunk, n_chunks = ops.scan_chunks(2, t, c)
+        log(f"rglru_scan {dtype} B=2 T={t} C={c} ({n_chunks} chunks of "
+            f"{chunk}): max abs err {err:.3e} (tolerance {tol:.3e}; max "
+            f"|plain| {expect.float().abs().max().item():.1f})")
         if not err <= tol:
             bad.append((str(dtype), t, c, err))
+        if not torch.equal(out, again):
+            bad.append((str(dtype), t, c, "two calls differ"))
     if bad:
         raise AssertionError(f"rglru_scan disagrees with its plain version: "
                              f"{bad}")
@@ -969,10 +996,11 @@ def _time_ms(fn, n_layers, iters=10):
     return start.elapsed_time(end) / (iters * n_layers)
 
 
-def _time_graph_ms(fn, n_layers, iters=10):
+def _time_graph_ms(fn, n_layers, iters=10, warmup=1):
     """Mean ms per call of one sweep of ``n_layers`` calls captured in a
-    CUDA graph and replayed ``iters`` times: the card's time for the calls
-    without the host's dispatch of each."""
+    CUDA graph and replayed ``iters`` times after ``warmup`` untimed
+    replays: the card's time for the calls without the host's dispatch of
+    each."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -984,7 +1012,8 @@ def _time_graph_ms(fn, n_layers, iters=10):
     with torch.cuda.graph(graph):
         for layer in range(n_layers):
             fn(layer)
-    graph.replay()
+    for _ in range(warmup):
+        graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1127,14 +1156,20 @@ def time_kernels(runs, lengths, long_runs):
     return entries
 
 
-def time_rglru(launches: int):
-    """The RG-LRU scan at the main path's shapes: (1, T=2048, C=2560)
-    fp32, the gates' a and x of one prompt of 2048 tokens, one input per
-    RG-LRU layer of the 18 (the prefill's working set)."""
+#: the RG-LRU scan's timed prompt lengths (B = 1, C = 2560, fp32): the
+#: middle of recurrentgemma-2b's prompts and its longest
+RGLRU_TIMED = (2048, 3500)
+
+
+def _rglru_case(t, launches):
+    """The RG-LRU scan at (1, T, 2560) fp32, the gates' a and x of one
+    prompt of T tokens, one input per RG-LRU layer of the 18 (the
+    prefill's working set): each checked against the plain version, then
+    timed eagerly and replayed in a CUDA graph beside the plain version."""
     import torch
     from repro_torch.kernels.rglru import ops, ref
-    n_layers, t, c = 18, 2048, 2560
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    n_layers, c = 18, 2560
+    gen = torch.Generator(device="cuda").manual_seed(t)
     inputs = [_rglru_inputs(gen, 1, t, c, torch.float32)
               for _ in range(n_layers)]
     err, tol = 0.0, float("inf")
@@ -1146,23 +1181,43 @@ def time_rglru(launches: int):
             raise AssertionError(f"rglru_scan at T={t}, C={c}: err {e} > "
                                  f"{rglru_tolerance(expect)}")
     ms = _time_ms(lambda i: ops.rglru_scan(*inputs[i]), n_layers)
+    # 100 untimed replays first: on an H100 the first window after the
+    # phases before this one read about 10% above the windows after it
+    graph_ms = _time_graph_ms(lambda i: ops.rglru_scan(*inputs[i]),
+                              n_layers, iters=50, warmup=100)
     plain_ms = _time_ms(lambda i: ref.rglru_scan_ref(*inputs[i]), n_layers,
                         iters=1)
-    elems = t * c
-    t_bytes = 3 * elems * 4 / MEM_BYTES_PER_S * 1e3
-    t_ops = 2 * elems / FP32_FLOPS_PER_S * 1e3
-    entry = dict(name="rglru_scan", **KERNELS["rglru_scan"],
-                 launches=launches, max_abs_err=err, ms=ms,
-                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                 library_ms=None)
-    log(f"rglru_scan: {ms * 1e3:.1f} us/call, bound "
-        f"{entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']}: "
-        f"{3 * elems * 4 / 1e6:.1f} MB), plain {plain_ms:.1f} ms, "
-        f"max abs err {err:.3e} (tolerance {tol:.3e} or more); "
-        f"launches on the main path {launches}; no PyTorch call computes "
-        f"a linear recurrence (library: null)")
-    return entry
+    io_bytes = 3 * t * c * 4
+    t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = 2 * t * c / FP32_FLOPS_PER_S * 1e3
+    chunk, n_chunks = ops.scan_chunks(1, t, c)
+    case = dict(shape=f"B=1, T={t}, C={c} fp32", launches=launches,
+                max_abs_err=err, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None, bytes=io_bytes, chunk_len=chunk,
+                n_chunks=n_chunks)
+    log(f"rglru_scan at (1, {t}, {c}) fp32: {ms * 1e3:.2f} us/call eager, "
+        f"{graph_ms * 1e3:.2f} us/call in a CUDA graph ({n_chunks} chunks "
+        f"of {chunk}, {-(-c // ops.SCAN_THREADS) * n_chunks} blocks in pass "
+        f"2), bound "
+        f"{case['bound_ms'] * 1e3:.2f} us ({case['bound_by']}: "
+        f"{io_bytes / 1e6:.1f} MB), plain {plain_ms:.1f} ms, max abs err "
+        f"{err:.3e} (tolerance {tol:.3e} or more); launches on the main "
+        f"path {launches}; no PyTorch call computes a linear recurrence "
+        f"(library: null)")
+    return case
+
+
+def time_rglru(launches: int):
+    """The RG-LRU scan at each of ``RGLRU_TIMED``'s lengths.  The entry's
+    own numbers are the first length's; ``cases`` holds both."""
+    cases = [_rglru_case(t, launches) for t in RGLRU_TIMED]
+    top = {k: v for k, v in cases[0].items()
+           if k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
+    return dict(name="rglru_scan", **KERNELS["rglru_scan"], **top,
+                cases=cases)
 
 
 #: the flash kernel's timed shapes, bf16, causal: (path, B, S, Hq, Hkv,

@@ -45,8 +45,8 @@ SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _F,
                         _I, _I, _I, _P],
-    "rglru_scan": [_P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-                   _L, _L, _L, _I, _I, _P],
+    "rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                   _L, _L, _L, _L, _I, _I, _P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -3,9 +3,12 @@
 ``rglru_scan(a, x)`` keeps the reference's name and its (B, T, C)
 layout (``repro.kernels.rglru.ops``).  For a CUDA tensor it builds (at
 first use) and launches the hand-written CUDA kernel on the current
-stream, or raises: there is no fallback.  For a CPU tensor it runs the
-plain PyTorch version (``ref.py``).  Launches are counted in
-``LAUNCHES``.
+stream, or raises: there is no fallback.  The kernel is a chunked
+two-pass scan: T is cut into chunks by ``scan_chunks``, pass 1 reduces
+each chunk to its product of ``a`` and its end state, pass 2 folds the
+chunks before each into its carry and walks it.  For a CPU tensor it runs
+the plain PyTorch version (``ref.py``).  Launches are counted in
+``LAUNCHES``: one per wrapper call, though a call is two CUDA launches.
 """
 
 from __future__ import annotations
@@ -20,11 +23,41 @@ from repro_torch.kernels.rglru.ref import rglru_scan_ref
 LAUNCHES = {"rglru_scan": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the H100's SMs, and the blocks per SM the chunk plan aims for
+N_SMS = 132
+BLOCKS_PER_SM = 8
+#: channels a block of the kernel owns, and the steps each thread loads
+#: ahead of its carry (``kThreads``, ``kUnroll`` in ``csrc/rglru_scan.cu``)
+SCAN_THREADS = 128
+SCAN_UNROLL = 16
+#: the shortest chunk, and the most chunks, so that pass 2's fold of the
+#: chunks before its own stays short
+MIN_CHUNK = 16
+MAX_CHUNKS = 64
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def scan_chunks(b: int, t: int, c: int):
+    """-> (chunk_len, n_chunks) of a scan over (B, T, C): T cut into
+    ``n_chunks`` chunks of ``chunk_len`` steps (the last may be shorter),
+    enough that the grid of (channel tiles of ``SCAN_THREADS``) x n_chunks
+    x B holds about ``BLOCKS_PER_SM`` blocks per SM.  ``chunk_len`` is at
+    least ``MIN_CHUNK`` and a multiple of ``SCAN_UNROLL``; ``n_chunks`` at
+    most ``MAX_CHUNKS``.  The shape alone decides, so a launch needs no
+    host sync and a CUDA graph can capture it.  One chunk (short T, or a
+    grid full without chunks) runs pass 2 alone from a zero carry."""
+    tiles = -(-c // SCAN_THREADS) * b
+    want = min(MAX_CHUNKS, -(-N_SMS * BLOCKS_PER_SM // tiles))
+    if want == 1:
+        return max(t, MIN_CHUNK), 1
+    chunk = max(MIN_CHUNK, t // want // SCAN_UNROLL * SCAN_UNROLL)
+    if -(-t // chunk) > MAX_CHUNKS:
+        chunk = -(-t // (MAX_CHUNKS * SCAN_UNROLL)) * SCAN_UNROLL
+    return chunk, -(-t // chunk)
 
 
 def rglru_scan(a, x):
@@ -48,12 +81,17 @@ def rglru_scan(a, x):
         raise ValueError(f"rglru_scan: shape {tuple(x.shape)} needs "
                          f"0 < B <= 65535, T > 0, C > 0")
     lib = build.load("rglru_scan")
+    chunk, n_chunks = scan_chunks(b, t, c)
     out = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
+    # pass 1's products and end states of every chunk but the last
+    scratch = torch.empty((2, b, n_chunks - 1, c), dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):   # the launch uses the current device
         code = lib.rglru_scan(
-            a.data_ptr(), x.data_ptr(), out.data_ptr(), b, t, c,
-            *a.stride(), *x.stride(), *out.stride(), _DTYPES[a.dtype],
-            _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+            a.data_ptr(), x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            b, t, c, chunk, n_chunks, *a.stride(), *x.stride(),
+            *out.stride(), _DTYPES[a.dtype], _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "rglru_scan", code)
     LAUNCHES["rglru_scan"] += 1
     return out

@@ -60,10 +60,10 @@ TOP = 8
 
 #: the port's hand-written kernels, by a part of their device names; a
 #: decode wrapper call runs its split kernel and the combine kernel both
-#: decode libraries share
-PORT_KERNELS = ("rglru_scan_kernel", "flash_attention_kernel",
-                "ragged_split_kernel", "paged_split_kernel",
-                "decode_combine_kernel")
+#: decode libraries share, an RG-LRU scan call its two passes
+PORT_KERNELS = ("rglru_chunk_reduce_kernel", "rglru_chunk_scan_kernel",
+                "flash_attention_kernel", "ragged_split_kernel",
+                "paged_split_kernel", "decode_combine_kernel")
 
 
 def _window(name, prof, host_s, top):

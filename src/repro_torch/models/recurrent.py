@@ -87,9 +87,10 @@ def _rglru_gates(p, u):
 def _scan(a, x_in, h0=None):
     """The recurrence over T from ``h0`` (None = zeros) -> fp32 h_all.
     The carry folds into the first step (``h_1 = a_1 h_0 + x_1``), so the
-    kernel, which starts from zero as the TPU kernel does, computes it."""
+    kernel, which starts from zero as the TPU kernel does, computes it.
+    ``x_in`` is the gates' own fresh tensor: the fold updates its first
+    step in place."""
     if h0 is not None:
-        x_in = x_in.clone()
         x_in[:, 0] += a[:, 0] * h0.float()
     return _scan_kernel(a, x_in)
 

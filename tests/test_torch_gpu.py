@@ -13,8 +13,10 @@ bf16 ulps of the largest output (both accumulate in fp32 and round once
 to bf16, so they differ by about one ulp; the prefill kernel's
 tensor-core P V also rounds P to bf16, which ``test_torch_flash.py``
 emulates on the CPU within the same limit).  The RG-LRU scan runs the
-plain version's own operations in its order, so it is held to
-1e-5 * max(1, max|plain output|) in fp32 and the same bf16 limit.
+plain version's own operations, its carry into each chunk reassociated
+(``test_torch_rglru_chunked.py`` emulates the chunks on the CPU), so it
+is held to 1e-5 * max(1, max|plain output|) in fp32 and the same bf16
+limit.
 """
 
 import dataclasses
@@ -325,40 +327,106 @@ def _rglru_inputs(gen, b, t, c, a_dtype, x_dtype):
     return a, x
 
 
+def _rglru_limit(expect):
+    """fp32: 1e-5 * max(1, max|plain|); bf16 outputs take BF16_REL_TOL."""
+    return 1e-5 * max(1.0, expect.float().abs().max().item())
+
+
 @pytest.mark.parametrize("a_dtype,x_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16)], ids=["f32", "bf16", "f32_bf16"])
-@pytest.mark.parametrize("t", [1, 7, 33, 300])
+@pytest.mark.parametrize("t", [1, 7, 16, 17, 33, 300, 1024, 1025])
 @pytest.mark.parametrize("c", [64, 200])
 def test_rglru_kernel_matches_plain(cuda, t, c, a_dtype, x_dtype):
+    """T = 1 and 7 run one chunk (pass 2 alone); at B = 2 and these C the
+    plan cuts chunks of 16 steps up to its cap of 64 chunks (T = 1024),
+    then of 32 (T = 1025)."""
     gen = torch.Generator(device="cuda").manual_seed(t * c)
     a, x = _rglru_inputs(gen, 2, t, c, a_dtype, x_dtype)
     out = rglru_ops.rglru_scan(a, x)
     torch.cuda.synchronize()
     expect = rglru_ref.rglru_scan_ref(a, x)
     assert out.dtype == x_dtype and out.shape == x.shape
-    _assert_within_tolerance(
-        out, expect, 1e-5 * max(1.0, expect.abs().max().item()))
+    _assert_within_tolerance(out, expect, _rglru_limit(expect))
 
 
-def test_rglru_kernel_reads_strided_views(cuda):
-    """a as a transposed view, x as every other channel of a wider
-    tensor: read in place through their strides."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    a, x = _rglru_inputs(gen, 3, 50, 96, torch.float32, torch.float32)
+@pytest.mark.parametrize("t,c,x_dtype", [
+    (50, 96, torch.float32), (17, 200, torch.bfloat16),
+    (1025, 200, torch.bfloat16), (3001, 200, torch.bfloat16)])
+def test_rglru_kernel_reads_strided_views(cuda, t, c, x_dtype):
+    """B = 3, a as a transposed view, x as every other channel of a wider
+    tensor: read in place through their strides, over 2 to 63 chunks."""
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    a, x = _rglru_inputs(gen, 3, t, c, torch.float32, x_dtype)
     a_view = a.transpose(1, 2).contiguous().transpose(1, 2)
     wide = torch.stack([x, -x], dim=-1).flatten(-2)[..., ::2]
     assert not a_view.is_contiguous() and not wide.is_contiguous()
+    assert rglru_ops.scan_chunks(3, t, c)[1] > 1
     out = rglru_ops.rglru_scan(a_view, wide)
     torch.cuda.synchronize()
     expect = rglru_ref.rglru_scan_ref(a, x)
-    _assert_within_tolerance(out, expect,
-                             1e-5 * max(1.0, expect.abs().max().item()))
+    _assert_within_tolerance(out, expect, _rglru_limit(expect))
+
+
+@pytest.mark.parametrize("b,t", [(1, 2048), (1, 3001), (2, 3001),
+                                 (1, 3500)])
+def test_rglru_kernel_matches_plain_at_recurrentgemma_width(cuda, b, t):
+    """C = 2560 with a near 0.999, at the prefill lengths of the main path:
+    chunks of 32 to 96 steps, each chunk's carry-in reassociated."""
+    gen = torch.Generator(device="cuda").manual_seed(b * t)
+    a, x = _rglru_inputs(gen, b, t, 2560, torch.float32, torch.float32)
+    assert rglru_ops.scan_chunks(b, t, 2560)[1] > 1
+    out = rglru_ops.rglru_scan(a, x)
+    torch.cuda.synchronize()
+    expect = rglru_ref.rglru_scan_ref(a, x)
+    _assert_within_tolerance(out, expect, _rglru_limit(expect))
+
+
+def test_rglru_kernel_is_deterministic(cuda):
+    """The fold runs in chunk order with no atomics: two calls on the same
+    inputs agree bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a, x = _rglru_inputs(gen, 1, 3500, 2560, torch.float32, torch.float32)
+    first = rglru_ops.rglru_scan(a, x)
+    assert torch.equal(first, rglru_ops.rglru_scan(a, x))
+
+
+def test_rglru_wrapper_replays_in_a_cuda_graph(cuda):
+    """One call captured in a CUDA graph: new inputs copied into the same
+    buffers give, on replay, the plain version's result (the plan and the
+    scratch come from the shape alone)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    a, x = _rglru_inputs(gen, 1, 2048, 2560, torch.float32, torch.float32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rglru_ops.rglru_scan(a, x)                  # warm up off capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rglru_ops.rglru_scan(a, x)
+    for seed in (7, 8):
+        new_a, new_x = _rglru_inputs(torch.Generator(
+            device="cuda").manual_seed(seed), 1, 2048, 2560, torch.float32,
+            torch.float32)
+        a.copy_(new_a)
+        x.copy_(new_x)
+        graph.replay()
+        torch.cuda.synchronize()
+        expect = rglru_ref.rglru_scan_ref(new_a, new_x)
+        _assert_within_tolerance(out, expect, _rglru_limit(expect))
+        assert torch.equal(out, rglru_ops.rglru_scan(a, x))
 
 
 def test_rglru_wrapper_counts_launches_and_rejects_bad_inputs(cuda):
     gen = torch.Generator(device="cuda").manual_seed(2)
     a, x = _rglru_inputs(gen, 2, 5, 8, torch.float32, torch.float32)
+    rglru_ops.reset_launch_counts()
+    rglru_ops.rglru_scan(a, x)
+    assert rglru_ops.LAUNCHES == {"rglru_scan": 1}
+    a2, x2 = _rglru_inputs(gen, 1, 2048, 2560, torch.float32, torch.float32)
+    rglru_ops.rglru_scan(a2, x2)        # two passes, one count
+    assert rglru_ops.LAUNCHES == {"rglru_scan": 2}
     rglru_ops.reset_launch_counts()
     rglru_ops.rglru_scan(a, x)
     assert rglru_ops.LAUNCHES == {"rglru_scan": 1}
