@@ -40,20 +40,30 @@ Phases (any failure exits non-zero, without the final result line):
    with a contiguous and with a paged (pages=4) cache: 16 requests, every
    one must return its tokens, each decode kernel's launch count must
    equal layers x executed decode steps of its run and the flash
-   kernel's layers x prefills; then, contiguous, 8 of the prompts with
-   budgets of 1 to 64 tokens on one ordered stream, served
-   with the engine's cut of each horizon at the last live step and
-   without it (every horizon runs K steps): the same tokens, and steps
-   launched against executed;
+   kernel's layers x prefills (on the card, here and in every later
+   serving phase, each fused horizon replays the engine's CUDA graph of
+   its length, which counts the launches it holds); then, contiguous, 8
+   of the prompts with budgets of 1 to 64 tokens on one ordered stream,
+   served with the engine's cut of each horizon at the last live step
+   and without it (every horizon runs K steps): the same tokens, and
+   steps launched against executed;
 5. qwen2-0.5b at full width with long prompts (1023 to 4000 tokens, pow2
    buckets, max_len 4096): 8 requests of 32 tokens at once, contiguous
    and paged, which must agree on every token, with the flash kernel
    launched layers x prefills; then the same prompts one at a time on
    one stream, so each prefills alone in its bucket (1024, 2048, 4096);
-6. the qwen2-0.5b smoke config at fp32 served on the card (kernels) and
-   on the CPU (plain versions, chunked attention for the round with a
-   1100-token prompt): the tokens must agree;
-7. recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks and 8
+6. the fused horizon as CUDA graphs against the eager body (the engine's
+   horizon runner swapped for ``Model.decode_horizon`` launched op by
+   op): qwen2-0.5b contiguous and paged on phase 4's prompts and
+   recurrentgemma-2b on all of phase 8's, once each way; the tokens must
+   agree, every one, the decode kernel launch layers x steps launched in
+   both modes, each engine capture 1 to K graphs and a second run on it
+   capture none; decode tok/s, max_memory_allocated and the graph count
+   of both modes are printed;
+7. the qwen2-0.5b smoke config at fp32 served on the card (kernels,
+   horizon graphs) and on the CPU (plain versions, chunked attention for
+   the round with a 1100-token prompt): the tokens must agree;
+8. recurrentgemma-2b at full width (26 layers: 18 RG-LRU blocks and 8
    local-attention blocks with window 2048, random weights from a
    ``torch.Generator`` seed 0) served through ``connect``: 8 slots,
    max_len 4096, horizon 8, 12 requests of 64 new tokens with prompts
@@ -62,9 +72,9 @@ Phases (any failure exits non-zero, without the final result line):
    must return its 64 tokens, the RG-LRU kernel must launch 18 times and
    the flash kernel 8 times per prefill, and the decode kernels never
    (rolling layers take plain decode attention, as in the reference);
-8. the recurrentgemma smoke config at fp32 served on the card and on the
+9. the recurrentgemma smoke config at fp32 served on the card and on the
    CPU, prompts past its window of 16: the tokens must agree;
-9. per kernel: its error against the plain version at the main path's
+10. per kernel: its error against the plain version at the main path's
    shapes (the decode kernels at phase 4's and phase 5's caches, 1024 and
    4096 keys; the flash kernel at both models' prefill shapes and at
    qwen2-0.5b's batched admission of 8 x 4096 rows; held to the
@@ -626,16 +636,39 @@ def fresh_peak() -> float:
     return torch.cuda.memory_allocated() / 2 ** 30
 
 
+def _timed_steps(eng):
+    """Wrap ``eng.step`` to add each call's host seconds (each ends in
+    the horizon's host sync) to the returned one-item list; ``del
+    eng.step`` undoes it."""
+    import torch
+    seconds, step = [0.0], eng.step
+    on_card = eng.device.type == "cuda"
+
+    def timed():
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        retired = step()
+        seconds[0] += time.perf_counter() - t
+        return retired
+
+    eng.step = timed
+    return seconds
+
+
 def serve_once(cfg, params, prompts, pages: bool, device: str,
                max_new=None, capped: bool = True, one_stream: bool = False,
-               max_len: int = SMAX):
+               max_len: int = SMAX, eager: bool = False, horizons=None):
     """Serve ``prompts`` through ``connect``, each asking for ``max_new[i]``
     tokens (default MAX_NEW), all at once or (``one_stream``) in order on
     one stream, each released when its predecessor retires; -> (outputs
     in prompt order, engine, launch counts of this run, decode seconds,
     wall seconds).  ``capped=False`` lets every horizon run all K steps,
     so steps after the last live slot are launched (and write nothing)
-    instead of cut by the engine."""
+    instead of cut by the engine.  ``eager`` swaps the engine's horizon
+    runner (on the card, its CUDA graphs) for the eager body,
+    ``Model.decode_horizon`` launched op by op on the same buffers.
+    ``horizons``, a list, receives the steps of each horizon launched."""
     import torch
     from repro_torch.serve import connect
     max_new = max_new or [MAX_NEW] * len(prompts)
@@ -647,27 +680,27 @@ def serve_once(cfg, params, prompts, pages: bool, device: str,
     eng = client.engine
     if not capped:
         eng._horizon_steps = lambda: eng.decode_horizon
-    on_card = eng.device.type == "cuda"
-    decode_s = [0.0]
-    step = eng.step
+    run_horizon = eng._run_horizon
+    if eager:
+        def run_horizon(n):
+            return eng._horizons.body(n)
 
-    def timed_step():
-        if on_card:
-            torch.cuda.synchronize()
-        t = time.perf_counter()
-        retired = step()          # ends in the horizon's host sync
-        decode_s[0] += time.perf_counter() - t
-        return retired
+    def counted_horizon(n):
+        if horizons is not None:
+            horizons.append(n)
+        return run_horizon(n)
 
-    eng.step = timed_step
+    eng._run_horizon = counted_horizon
+    decode_s = _timed_steps(eng)
     reset_counts()
     t0 = time.perf_counter()
     out = client.run()
-    if on_card:
+    if eng.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
     del eng.step      # the wrappers refer back to the engine: free them now
+    del eng._run_horizon
     eng.__dict__.pop("_horizon_steps", None)
     return [out[r] for r in rids], eng, counts, decode_s[0], wall
 
@@ -701,7 +734,8 @@ def serve_full_width(card: str):
         tok = eng.stats["busy_slot_steps"]
         log(f"serve {layout}: {len(outs)} requests, "
             f"{sum(map(len, outs))} tokens, {steps} decode steps in "
-            f"{eng.stats['decode_calls']} horizons, {wall:.2f}s wall; "
+            f"{eng.stats['decode_calls']} horizons "
+            f"({eng.compile_count()} graphs), {wall:.2f}s wall; "
             f"launches {counts} (expected {expect})")
         log(f"  decode {tok / dec_s:.1f} tok/s ({tok} tokens in "
             f"{dec_s:.3f}s, batch {N_SLOTS}, horizon {HORIZON}); "
@@ -801,7 +835,8 @@ def serve_long_prompts(cfg, params, card: str):
         tok = eng.stats["busy_slot_steps"]
         log(f"long prompts {name} (buckets {list(eng.prefill_buckets)}): "
             f"{len(outs)} requests, {sum(map(len, outs))} tokens, "
-            f"{prefills} prefills, {steps} decode steps; launches {counts} "
+            f"{prefills} prefills, {steps} decode steps "
+            f"({eng.compile_count()} graphs); launches {counts} "
             f"(expected {expect})")
         log(f"  wall {wall:.2f}s, decode {tok / dec_s:.1f} tok/s ({tok} "
             f"tokens in {dec_s:.3f}s); max_memory_allocated "
@@ -832,6 +867,118 @@ def serve_long_prompts(cfg, params, card: str):
 
 
 # ----- phase 6 ---------------------------------------------------------------
+
+def _expected_launches(cfg, eng, launched: int) -> dict:
+    """Each prefill launches the flash kernel in every attention layer and
+    the RG-LRU scan in every RG-LRU layer; each decode step launched, the
+    decode kernel in every layer of a stack that can page (a rolling
+    window takes plain decode attention, as in the reference)."""
+    n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    prefills = eng.stats["prefills"]
+    expect = {"ragged_decode": 0, "paged_decode": 0,
+              "flash_attention": (cfg.n_layers - n_rglru) * prefills,
+              "rglru_scan": n_rglru * prefills}
+    if eng.model.supports_paged_cache:
+        expect["paged_decode" if eng.paged else "ragged_decode"] = \
+            cfg.n_layers * launched
+    return expect
+
+
+def graph_vs_eager(prompts, cfg, params, card: str) -> dict:
+    """The fused horizon as CUDA graphs against the eager body, at full
+    width: qwen2-0.5b contiguous and paged on phase 4's prompts, and
+    recurrentgemma-2b on all of phase 8's prompts.  Each serves once as
+    the engine runs (each horizon a graph replay, captured at its first
+    length), then once with the engine's horizon runner swapped for the
+    eager body.  Gates: the same tokens, every one; in both modes the
+    decode kernel launched layers x steps launched; 1 to K graphs in the
+    graph mode, and a second run of the same requests on the same engine
+    that captures nothing and serves the same tokens.  Prints decode
+    tok/s (the graph mode's first run includes its captures, the second
+    run none), max_memory_allocated of both modes and the graph count.
+    -> {case: {mode: tok/s}}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import Request
+
+    def recurrentgemma():
+        rg_cfg = get_config("recurrentgemma-2b")
+        return rg_cfg, Model(rg_cfg, "cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+
+    cases = (("qwen2-0.5b contiguous", lambda: (cfg, params), prompts,
+              False, SMAX),
+             ("qwen2-0.5b paged", lambda: (cfg, params), prompts, True,
+              SMAX),
+             ("recurrentgemma-2b", recurrentgemma, None, False, RG_MAX_LEN))
+    rates, bad = {}, []
+    for name, weights, pr, pages, max_len in cases:
+        c, p = weights()
+        pr = pr or _rg_prompts(c.vocab, RG_PROMPTS, seed=3)
+        outs, rates[name] = {}, {}
+        for mode in ("graph", "eager"):
+            live = fresh_peak()
+            horizons = []
+            outs[mode], eng, counts, dec_s, _ = serve_once(
+                c, p, pr, pages, "cuda", max_len=max_len,
+                eager=mode == "eager", horizons=horizons)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            expect = _expected_launches(c, eng, sum(horizons))
+            tok = eng.stats["busy_slot_steps"]
+            graphs = eng.compile_count()
+            rates[name][mode] = tok / dec_s
+            log(f"{name} {mode}: decode {tok / dec_s:.1f} tok/s ({tok} "
+                f"tokens in {dec_s:.3f}s, {len(horizons)} horizons, "
+                f"{sum(horizons)} steps launched, "
+                f"{eng.stats['decode_steps']} executed); "
+                f"max_memory_allocated {peak:.2f} GiB ({live:.2f} GiB live "
+                f"before the run); {graphs} graphs (lengths "
+                f"{sorted(set(horizons))}); launches {counts} (expected "
+                f"{expect}); on {card}")
+            if counts != expect:
+                bad.append(f"{name} {mode}: launches {counts} != {expect}")
+            if mode == "graph":
+                if not 1 <= graphs <= HORIZON:
+                    bad.append(f"{name}: {graphs} graphs, not 1 to "
+                               f"{HORIZON}")
+                # the same requests again on the same engine: the same
+                # horizon lengths, so no capture
+                n_done, tok0 = len(eng.done), tok
+                for i, prompt in enumerate(pr):
+                    eng.submit(Request(rid=len(pr) + i, prompt=prompt,
+                                       max_new_tokens=MAX_NEW))
+                seconds = _timed_steps(eng)
+                again = [r.output for r in sorted(eng.run()[n_done:],
+                                                  key=lambda r: r.rid)]
+                del eng.step
+                tok = eng.stats["busy_slot_steps"] - tok0
+                rates[name]["graph, no capture"] = tok / seconds[0]
+                log(f"  a second run on the same engine: decode "
+                    f"{tok / seconds[0]:.1f} tok/s ({tok} tokens in "
+                    f"{seconds[0]:.3f}s), {eng.compile_count()} graphs, "
+                    f"tokens equal to the first run's: {again == outs[mode]}")
+                if eng.compile_count() != graphs or again != outs[mode]:
+                    bad.append(f"{name}: the second run captured or served "
+                               f"other tokens")
+            del eng
+        same = sum(x == y for a, b in zip(outs["graph"], outs["eager"])
+                   for x, y in zip(a, b))
+        total = sum(map(len, outs["eager"]))
+        log(f"{name}: graph vs eager {same}/{total} tokens agree; decode "
+            f"{rates[name]['graph'] / rates[name]['eager']:.2f}x the eager "
+            f"tok/s with the captures, "
+            f"{rates[name]['graph, no capture'] / rates[name]['eager']:.2f}x "
+            f"without; on {card}")
+        if outs["graph"] != outs["eager"]:
+            bad.append(f"{name}: graph and eager serve different tokens")
+        del p
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rates
+
+
+# ----- phase 7 ---------------------------------------------------------------
 
 def smoke_card_vs_cpu() -> None:
     """The smoke config at fp32 on the card and on the CPU; the first
@@ -867,7 +1014,7 @@ def smoke_card_vs_cpu() -> None:
                              f"kernel did not run: {bad}")
 
 
-# ----- phase 7 ---------------------------------------------------------------
+# ----- phase 8 ---------------------------------------------------------------
 
 def _rg_prompts(vocab, lengths, seed):
     import numpy as np
@@ -911,7 +1058,8 @@ def serve_recurrentgemma(card: str):
         f"{list(eng.prefill_buckets) or 'off'}, paged {eng.paged}): "
         f"{len(outs)} requests, {sum(map(len, outs))} tokens, {prefills} "
         f"prefills, {steps} decode steps in {eng.stats['decode_calls']} "
-        f"horizons; launches {counts} (expected {expect}; decode-attention "
+        f"horizons ({eng.compile_count()} graphs); launches {counts} "
+        f"(expected {expect}; decode-attention "
         f"kernels {counts['ragged_decode'] + counts['paged_decode']})")
     log(f"  decode {tok / dec_s:.1f} tok/s ({tok} tokens in {dec_s:.3f}s, "
         f"batch {N_SLOTS}, horizon {HORIZON}); wall {wall:.2f}s; "
@@ -942,7 +1090,7 @@ def serve_recurrentgemma(card: str):
             "flash_launches": counts["flash_attention"]}
 
 
-# ----- phase 8 ---------------------------------------------------------------
+# ----- phase 9 ---------------------------------------------------------------
 
 def smoke_recurrentgemma_card_vs_cpu() -> None:
     import numpy as np
@@ -975,7 +1123,7 @@ def smoke_recurrentgemma_card_vs_cpu() -> None:
                              "the RG-LRU or flash kernel did not run")
 
 
-# ----- phase 9 ---------------------------------------------------------------
+# ----- phase 10 --------------------------------------------------------------
 
 def _time_ms(fn, n_layers, iters=10):
     """Mean ms per call over ``iters`` sweeps of ``n_layers`` calls, each
@@ -1352,13 +1500,15 @@ def main() -> int:
     phase("kernels vs plain versions", check_kernels)
     phase("rglru_scan vs plain version", check_rglru)
     phase("flash_attention vs plain version", check_flash)
-    long = None
+    long = rates = None
     served = phase("serve qwen2-0.5b at full width", serve_full_width, card)
     if served is not None:
         phase("horizon cut vs uncut", horizon_cap, *served[2:], served[1],
               card)
         long = phase("serve qwen2-0.5b long prompts at full width",
                      serve_long_prompts, *served[2:], card)
+        rates = phase("fused horizon: graph vs eager", graph_vs_eager,
+                      *served[1:], card)
     phase("smoke config at fp32: card vs CPU", smoke_card_vs_cpu)
     rg = phase("serve recurrentgemma-2b at full width",
                serve_recurrentgemma, card)
@@ -1385,6 +1535,12 @@ def main() -> int:
         f"{long['contiguous']['tok_s']:.1f}, paged "
         f"{long['paged']['tok_s']:.1f}; recurrentgemma-2b "
         f"{rg['tok_s']:.1f}; on {card}")
+    if rates is not None:
+        log("decode tok/s, horizon graphs (first run, captures included; "
+            "second run) vs eager body: " + "; ".join(
+                f"{name} {r['graph']:.1f}, {r['graph, no capture']:.1f} vs "
+                f"{r['eager']:.1f}" for name, r in rates.items())
+            + f"; on {card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,7 +160,8 @@ def main(argv=None):
           f"occupancy {engine.occupancy:.2f}, "
           f"{engine.stats['decode_steps']} decode steps in "
           f"{engine.stats['decode_calls']} calls "
-          f"(horizon {engine.decode_horizon}), "
+          f"(horizon {engine.decode_horizon}, "
+          f"{engine.compile_count()} horizon graphs), "
           f"{engine.stats['prefills']} prefills for "
           f"{engine.stats['prefilled_requests']} requests "
           f"(buckets {list(engine.prefill_buckets) or 'off'})")

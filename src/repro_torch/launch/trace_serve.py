@@ -9,14 +9,21 @@
 Draws full-width weights on the card (``torch.Generator`` seed 0), warms
 the engine up (kernel builds, library handles) on two short requests,
 then serves the prompts on a ``ContinuousEngine`` (the executor under
-``connect``; 8 slots, decode horizon 8, contiguous cache, 64 new tokens
-per request) and traces two windows with ``torch.profiler``: the first
-admission round (one prefill per slot) and the first 4 fused horizons.
-For
-each window it prints the host seconds, the card's kernel time (the sum
-of every kernel's own time: one stream, so no overlap), the share of the
+``connect``; 8 slots, decode horizon 8, contiguous cache, 104 new
+tokens per request) and traces three windows with ``torch.profiler``:
+the first admission round (one prefill per slot); the first 4 fused
+horizons with the engine's horizon runner swapped, here, for the eager
+body (``Model.decode_horizon`` launched op by op, as before the horizon
+graphs); and, after one horizon that captures the graph of 8 steps, the
+next 4 horizons as the engine runs them, one graph replay each.  So the
+eager and the graph decode windows are read in one process.  For each
+window it prints the host seconds, the card's kernel time (the sum of
+every kernel's own time: one stream, so no overlap), the share of the
 window the card sat idle, and the kernels that took the most time, as
-one JSON line per window.  The run continues unprofiled to the end.
+one JSON line per window.  The 4 graph horizons after those are timed
+again unprofiled (host seconds only, a fourth line): the profiler's
+tracing costs time per kernel, which the graph's short gaps show.  The
+run continues unprofiled to the end.
 Needs a CUDA device; the numbers are the card's, with its name and power
 limit.
 """
@@ -52,8 +59,10 @@ def _card() -> str:
 
 SLOTS = 8
 DECODE_HORIZON = 8
-MAX_NEW = 64
-#: fused horizons traced in the decode window
+#: new tokens per request: 13 horizons of 8, for the three decode
+#: windows and the capture between the first two
+MAX_NEW = 104
+#: fused horizons traced in each decode window
 DECODE_CALLS = 4
 #: kernels listed per window
 TOP = 8
@@ -95,9 +104,11 @@ def _window(name, prof, host_s, top):
 
 def trace(eng, prompts, max_new: int = MAX_NEW,
           decode_calls: int = DECODE_CALLS, top: int = TOP):
-    """Serve ``prompts`` on the started engine ``eng``, tracing the first
-    admission round and the first ``decode_calls`` horizons; -> the two
-    window summaries."""
+    """Serve ``prompts`` on the fused-horizon engine ``eng``, tracing the
+    first admission round, ``decode_calls`` horizons of the eager body,
+    then, after one horizon that captures its graph, ``decode_calls``
+    graph replays, and timing ``decode_calls`` more replays unprofiled;
+    -> the four window summaries."""
     on_card = eng.device.type == "cuda"
 
     def sync():
@@ -119,21 +130,43 @@ def trace(eng, prompts, max_new: int = MAX_NEW,
     admission = _window("admission", prof, host, top)
     admission.update(prefills=admitted,
                      prompt_tokens=sum(len(p) for p in prompts[:admitted]))
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        steps0 = eng.stats["decode_steps"]
-        for _ in range(decode_calls):
-            eng.step()
-        sync()
-        host = time.perf_counter() - t0
-    decode = _window("decode", prof, host, top)
-    decode.update(decode_steps=eng.stats["decode_steps"] - steps0,
-                  batch=eng.n_slots)
+
+    def decode_window(name):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            steps0 = eng.stats["decode_steps"]
+            for _ in range(decode_calls):
+                eng.step()
+            sync()
+            host = time.perf_counter() - t0
+        win = _window(name, prof, host, top)
+        win.update(decode_steps=eng.stats["decode_steps"] - steps0,
+                   batch=eng.n_slots)
+        return win
+
+    eng._run_horizon = eng._horizons.body        # the eager body
+    eager = decode_window("decode eager")
+    del eng._run_horizon                         # the engine's graphs
+    t0 = time.perf_counter()
+    eng.step()                                   # captures, then replays
+    sync()
+    capture_s = time.perf_counter() - t0
+    graph = decode_window("decode graph")
+    graph.update(graphs=eng.compile_count(), capture_horizon_s=capture_s)
+    t0 = time.perf_counter()
+    steps0 = eng.stats["decode_steps"]
+    for _ in range(decode_calls):
+        eng.step()
+    sync()
+    unprofiled = {"window": "decode graph unprofiled",
+                  "host_s": time.perf_counter() - t0,
+                  "decode_steps": eng.stats["decode_steps"] - steps0,
+                  "batch": eng.n_slots}
     while eng.has_work:          # the rest, unprofiled
         eng.admit_waiting()
         if not eng.step() and eng.n_active == 0:
             break
-    return [admission, decode]
+    return [admission, eager, graph, unprofiled]
 
 
 def main(argv=None):

@@ -17,16 +17,23 @@ queued request may take it.  The two host-batching layers are kept:
   prompt alone at its exact length, and keep the contiguous cache even
   under a paged plan, as the reference does.
 
-Eager PyTorch compiles nothing, so the reference's shared jitted
-executables (``SharedSteps``) have no counterpart: the engine calls its
-``Model`` directly.  Cache scatters write in place, indexed by the slot
-assignment the host already knows.  The wave ``ServeEngine``, regroup,
-evacuation, KV handoff and session export come with a later slice.
+The reference's jitted executables (``SharedSteps``) have one
+counterpart here, the horizon's: ``HorizonGraphs`` captures the fused
+horizon as one ``torch.cuda.CUDAGraph`` per ``n_steps`` at first use, on
+the engine's static buffers, and replays it as one launch per horizon;
+``compile_count()`` counts those graphs.  A graph binds the addresses of
+one engine's buffers, so unlike ``SharedSteps`` it is not shared between
+the engines of an exec group.  Admission (prefill and scatter, the
+reference's jitted ``admit_packed``) and the K=1 loop stay eager.  Cache
+scatters write in place, indexed by the slot assignment the host already
+knows.  The wave ``ServeEngine``, regroup, evacuation, KV handoff and
+session export come with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -36,6 +43,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import Buckets, EndpointPlan
+from repro_torch.kernels.flash_attention import ops as attention_ops
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_leaves
 from repro_torch.serve.pages import PagePool, sentinel
@@ -136,6 +145,142 @@ def pow2_buckets(max_len: int, lo: int = 8) -> Tuple[int, ...]:
     return tuple(out)
 
 
+#: the leaves of a horizon's token trace, each (K, B), as
+#: ``Model.decode_horizon`` returns them
+_TRACE = (("tok", torch.int32), ("live", torch.bool),
+          ("bonus_tok", torch.int32), ("bonus", torch.bool),
+          ("retired", torch.bool))
+#: the kernel wrappers' launch counters: plain dicts counted in Python,
+#: which a graph's replay does not touch
+_LAUNCH_COUNTERS = (attention_ops.LAUNCHES, rglru_ops.LAUNCHES)
+#: one capture stream per device, shared by every engine's graphs:
+#: PyTorch keeps a cuBLAS workspace (32 MiB on an H100) for each stream
+#: that ran a matmul until the process ends, so a stream per engine
+#: would keep one per engine
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
+def _launch_counts() -> List[Dict[str, int]]:
+    return [dict(counter) for counter in _LAUNCH_COUNTERS]
+
+
+def _set_launch_counts(counts: List[Dict[str, int]]) -> None:
+    for counter, saved in zip(_LAUNCH_COUNTERS, counts):
+        counter.update(saved)
+
+
+class HorizonGraphs:
+    """The fused decode horizon as executables: the port's counterpart of
+    the reference's jitted ``SharedSteps.horizon``.
+
+    ``body(n_steps)`` runs ``Model.decode_horizon`` eagerly on static
+    buffers: it reads the engine's persistent cache and device state, and
+    copies what the model hands back as new tensors (the cache's ``idx``,
+    the state, the trace) into those same tensors and into one static
+    (K, B) trace per leaf.  The engine's host-side writers (the admission
+    scatters, ``_land``, ``_retire``) write the same tensors in place, so
+    every address the body reads stays fixed for the engine's life.
+
+    On a CUDA device a call captures the body once per ``n_steps`` (the
+    engine's cut of the horizon, 1..K, so at most K graphs) at first use,
+    as jit compiles at first use, and replays it: one launch for the whole
+    horizon.  The body is warmed up once (kernel builds, library handles)
+    on the device's capture stream, which every engine shares, at
+    construction, when every slot is drained, so it writes nothing.
+    Warm-up and capture leave the kernel launch counters as they were;
+    each replay adds the launches its graph holds.  A failed warm-up or
+    capture raises.  The graphs share one private memory pool, freed with
+    them.  On the CPU nothing is captured and a call runs the body.
+
+    A graph binds the addresses of one engine's buffers, so the
+    reference's sharing of one executable set across the engines of an
+    exec group has no counterpart yet: what a group shares (one memory
+    pool, say) is the fleet slice's choice."""
+
+    def __init__(self, model: Model, params, cache, state, *, horizon: int,
+                 max_len: int, use_ragged_kernel: bool):
+        self.model = model
+        self.params = params
+        self.cache = cache
+        self.state = state
+        self.horizon = horizon
+        self.max_len = max_len
+        self.use_ragged_kernel = use_ragged_kernel
+        b, dev = state["tok"].shape[0], state["tok"].device
+        self.trace = {name: torch.zeros((horizon, b), dtype=dt, device=dev)
+                      for name, dt in _TRACE}
+        #: n_steps -> (graph, the launch counts one replay adds)
+        self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph,
+                                     List[Dict[str, int]]]] = {}
+        self._pool = self._stream = None
+        if dev.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = _capture_stream(dev)
+            counts = _launch_counts()
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._stream):
+                self.body(1)
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+            _set_launch_counts(counts)
+
+    def body(self, n_steps: int):
+        """One horizon of ``n_steps`` steps, eagerly, on the static
+        buffers; -> the static trace."""
+        cache, state, trace = self.model.decode_horizon(
+            self.params, self.cache, self.state, horizon=self.horizon,
+            max_len=self.max_len, use_ragged_kernel=self.use_ragged_kernel,
+            n_steps=n_steps)
+        self.cache["idx"].copy_(cache["idx"])
+        for name, buf in self.state.items():
+            buf.copy_(state[name])
+        for name, buf in self.trace.items():
+            buf.copy_(trace[name])
+        return self.trace
+
+    def _capture(self, n_steps: int):
+        counts = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # no garbage collection during the capture: one could free another
+        # engine's graphs (held by a dead reference cycle), and releasing
+        # them while this stream captures invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                self.body(n_steps)
+        finally:
+            if collecting:
+                gc.enable()
+        held = [{name: n - before[name] for name, n in after.items()}
+                for after, before in zip(_launch_counts(), counts)]
+        _set_launch_counts(counts)
+        return graph, held
+
+    def __call__(self, n_steps: int):
+        """One horizon of ``n_steps`` steps: its graph's replay on the
+        card (captured first if new), the body on the CPU; -> the static
+        trace."""
+        if self._stream is None:
+            return self.body(n_steps)
+        if n_steps not in self.graphs:
+            self.graphs[n_steps] = self._capture(n_steps)
+        graph, held = self.graphs[n_steps]
+        graph.replay()
+        for counter, add in zip(_LAUNCH_COUNTERS, held):
+            for name, n in add.items():
+                counter[name] += n
+        return self.trace
+
+
 class ContinuousEngine:
     """Continuous batching over an endpoint-style slot pool (see the
     module docstring), configured wholly by its ``EndpointPlan``: slots,
@@ -191,6 +336,7 @@ class ContinuousEngine:
         self._eos_id = None
         self._has_eos = None
         self._dev_state = None     # device-resident state (fused mode)
+        self._horizons: Optional[HorizonGraphs] = None    # fused mode
 
     def _resolve_buckets(self, buckets: Buckets) -> Tuple[int, ...]:
         """-> the active bucket set (empty tuple = exact-length prefill)."""
@@ -220,9 +366,11 @@ class ContinuousEngine:
                          f"bucket {self.prefill_buckets[-1]}")
 
     def compile_count(self) -> int:
-        """Always 0: eager PyTorch compiles no executables (the
-        reference counts jit specializations here)."""
-        return 0
+        """Horizon graphs this engine has captured: at most one per
+        horizon length 1..K, 0 on the CPU (nothing is captured there) and
+        at K=1.  The counterpart of the reference's jit specializations,
+        the execs axis' signal."""
+        return 0 if self._horizons is None else len(self._horizons.graphs)
 
     def submit(self, req: Request):
         req.output = []
@@ -356,7 +504,8 @@ class ContinuousEngine:
         self._has_eos = np.zeros(b, bool)
         if self.decode_horizon > 1:
             # fused mode: the decode state lives on device between
-            # horizons; every slot starts drained
+            # horizons, in the static buffers the horizon graphs read;
+            # every slot starts drained
             z = torch.zeros(b, dtype=torch.int32, device=self.device)
             self._dev_state = {
                 "tok": z.clone(), "remaining": z.clone(),
@@ -367,6 +516,10 @@ class ContinuousEngine:
                 "has_eos": torch.zeros(b, dtype=torch.bool,
                                        device=self.device),
             }
+            self._horizons = HorizonGraphs(
+                self.model, self.params, self._cache, self._dev_state,
+                horizon=self.decode_horizon, max_len=self.max_len,
+                use_ragged_kernel=self.use_ragged_kernel)
         self._started = True
 
     @property
@@ -478,19 +631,20 @@ class ContinuousEngine:
                 need = max(need, min(budget, edge))
         return min(self.decode_horizon, need)
 
+    def _run_horizon(self, n_steps: int):
+        """One horizon of ``n_steps`` steps (its graph on the card); ->
+        the static trace."""
+        return self._horizons(n_steps)
+
     def _step_fused(self) -> List[Request]:
         """One fused horizon: up to K decode steps on device, one host
         drain of the token trace."""
         if self.n_active == 0:
             return []
         k = self.decode_horizon
-        self._cache, self._dev_state, trace = self.model.decode_horizon(
-            self.params, self._cache, self._dev_state, horizon=k,
-            max_len=self.max_len, use_ragged_kernel=self.use_ragged_kernel,
-            n_steps=self._horizon_steps())
+        trace = self._run_horizon(self._horizon_steps())
         # ONE blocking transfer drains the whole K-step trace
-        names = ("tok", "live", "bonus_tok", "bonus", "retired")
-        packed = torch.stack([trace[n].to(torch.int32) for n in names])
+        packed = torch.stack([trace[n].to(torch.int32) for n, _ in _TRACE])
         tok, live, bonus_tok, bonus, retired_t = packed.cpu().numpy()
         live, bonus, retired_t = (live.astype(bool), bonus.astype(bool),
                                   retired_t.astype(bool))

@@ -282,14 +282,10 @@ def test_model_decode_runs_the_kernels(cuda, pages):
                                atol=1e-4)
 
 
-def _engine_run(cfg, params, device, horizon, pages, buckets="auto"):
-    from repro_torch.core.plan import EndpointPlan, SharingVector
-    from repro_torch.serve.engine import ContinuousEngine, Request
-    plan = EndpointPlan(
-        vector=SharingVector(pages=4 if pages else 1), n_slots=3,
-        max_len=48, decode_horizon=horizon, prefill_buckets=buckets,
-        executor="continuous", page_budget=8 if pages else None)
-    eng = ContinuousEngine(cfg, params, plan, device=device)
+def _submit_requests(eng):
+    """Eleven requests for a 48-token cache: ragged prompts and budgets,
+    one EOS id, and one prompt that reaches the cache edge."""
+    from repro_torch.serve.engine import Request
     rng = np.random.default_rng(5)
     for rid in range(10):
         prompt = rng.integers(1, 128, size=int(rng.integers(2, 20)))
@@ -298,6 +294,17 @@ def _engine_run(cfg, params, device, horizon, pages, buckets="auto"):
                            eos_id=7 if rid == 4 else None))
     eng.submit(Request(rid=10, prompt=np.arange(1, 41, dtype=np.int32),
                        max_new_tokens=20))
+
+
+def _engine_run(cfg, params, device, horizon, pages, buckets="auto"):
+    from repro_torch.core.plan import EndpointPlan, SharingVector
+    from repro_torch.serve.engine import ContinuousEngine
+    plan = EndpointPlan(
+        vector=SharingVector(pages=4 if pages else 1), n_slots=3,
+        max_len=48, decode_horizon=horizon, prefill_buckets=buckets,
+        executor="continuous", page_budget=8 if pages else None)
+    eng = ContinuousEngine(cfg, params, plan, device=device)
+    _submit_requests(eng)
     done = {r.rid: r.output for r in eng.run()}
     return done, eng.admit_order, eng.retire_steps
 
@@ -686,3 +693,154 @@ def test_engine_long_prompt_on_card_matches_cpu(cuda, pages):
             cfg.n_layers * eng.stats["prefills"] if dev == "cuda" else 0)
         runs.append((done, eng.admit_order, eng.retire_steps))
     assert runs[0] == runs[1]
+
+
+# ----- fused horizon graphs ----------------------------------------------------
+
+def _horizon_engine(arch, pages, horizon):
+    """A smoke-config engine at fp32 on the card, not started."""
+    from repro_torch.core.plan import EndpointPlan, SharingVector
+    from repro_torch.serve.engine import ContinuousEngine
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    return ContinuousEngine(cfg, params, EndpointPlan(
+        vector=SharingVector(pages=4 if pages else 1), n_slots=3,
+        max_len=48, decode_horizon=horizon, executor="continuous",
+        page_budget=8 if pages else None), device="cuda")
+
+
+def _horizon_run(eng, on_horizon=None):
+    """Serve ``_submit_requests``' requests on the started ``eng``; ->
+    (tokens, admission order, retirement steps, the horizon lengths
+    launched in order, launch counts of the run).  ``on_horizon(n)`` runs
+    after each horizon of ``n`` steps."""
+    _submit_requests(eng)
+    steps, run = [], eng._run_horizon
+
+    def counted(n):
+        trace = run(n)
+        steps.append(n)
+        if on_horizon is not None:
+            on_horizon(n)
+        return trace
+
+    eng._run_horizon = counted
+    ops.reset_launch_counts()
+    rglru_ops.reset_launch_counts()
+    n_done = len(eng.done)
+    done = {r.rid: r.output for r in eng.run()[n_done:]}
+    torch.cuda.synchronize()
+    eng._run_horizon = run
+    return (done, eng.admit_order[n_done:], eng.retire_steps, steps,
+            dict(ops.LAUNCHES, **rglru_ops.LAUNCHES))
+
+
+def _expected_launches(eng, steps):
+    """Each decode step launched runs the decode kernel in every attention
+    layer of a paging-capable stack; each prefill its prefill kernels."""
+    cfg = eng.cfg
+    n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    expect = {"ragged_decode": 0, "paged_decode": 0,
+              "flash_attention": (cfg.n_layers - n_rglru)
+              * eng.stats["prefills"],
+              "rglru_scan": n_rglru * eng.stats["prefills"]}
+    if eng.model.supports_paged_cache:
+        name = "paged_decode" if eng.paged else "ragged_decode"
+        expect[name] = cfg.n_layers * sum(steps)
+    return expect
+
+
+def _static_buffers(eng):
+    from repro_torch.models.params import tree_leaves
+    cache = eng._cache
+    return (tree_leaves(cache["stack"]) + [cache["idx"]]
+            + ([cache["pt"]] if "pt" in cache else [])
+            + list(eng._dev_state.values())
+            + list(eng._horizons.trace.values()))
+
+
+GRAPH_CASES = [pytest.param("qwen2-0.5b", False, id="qwen2-contiguous"),
+               pytest.param("qwen2-0.5b", True, id="qwen2-pages4"),
+               pytest.param("recurrentgemma-2b", False, id="recurrentgemma")]
+
+
+@pytest.mark.parametrize("arch,pages", GRAPH_CASES)
+def test_horizon_graphs_serve_the_eager_tokens(cuda, arch, pages):
+    """Every fused horizon replays its graph and serves the tokens of the
+    eager body (the engine's horizon runner swapped for it); both modes
+    launch the decode kernel layers x steps launched."""
+    runs = {}
+    for eager in (False, True):
+        eng = _horizon_engine(arch, pages, horizon=4)
+        eng.start()
+        if eager:
+            eng._run_horizon = eng._horizons.body
+        done, order, retire, steps, launches = _horizon_run(eng)
+        assert launches == _expected_launches(eng, steps), eager
+        assert eng.compile_count() == (0 if eager else len(set(steps)))
+        runs[eager] = done, order, retire
+    assert runs[False] == runs[True]
+
+
+def test_compile_count_grows_only_at_a_new_horizon_length(cuda):
+    """At most K graphs, one more exactly when a horizon length first
+    appears; a second run on the same engine captures nothing; after its
+    capture a horizon length never calls ``Model.decode_horizon`` again
+    (the warm-up's one step aside)."""
+    import collections
+    eng = _horizon_engine("qwen2-0.5b", False, horizon=4)
+    calls = collections.Counter()
+    body = eng.model.decode_horizon
+
+    def counted(*args, n_steps=None, **kw):
+        calls[n_steps] += 1
+        return body(*args, n_steps=n_steps, **kw)
+
+    eng.model.decode_horizon = counted
+    eng.start()
+    assert calls == {1: 1} and eng.compile_count() == 0       # warm-up
+    seen = []
+
+    def check(n):
+        seen.append(n)
+        assert eng.compile_count() == len(set(seen))
+
+    first = _horizon_run(eng, check)
+    captured = eng.compile_count()
+    assert 1 <= captured <= eng.decode_horizon
+    assert len(seen) > captured                                # replays
+    again = _horizon_run(eng, check)
+    assert eng.compile_count() == captured
+    assert again[0] == first[0]
+    assert calls == collections.Counter(set(seen)) + collections.Counter(
+        {1: 1})
+
+
+@pytest.mark.parametrize("arch,pages", GRAPH_CASES)
+def test_capture_with_live_slots_changes_nothing(cuda, arch, pages):
+    """A capture in the middle of a run, with live slots, writes no static
+    buffer, and the run serves the eager body's tokens."""
+    eng = _horizon_engine(arch, pages, horizon=8)
+    eng.start()
+    eng._run_horizon = eng._horizons.body
+    expect = _horizon_run(eng)[:3]
+    eng = _horizon_engine(arch, pages, horizon=8)
+    eng.start()
+    forced = []
+
+    def capture_one_more(_):
+        graphs = eng._horizons.graphs
+        if forced or len(graphs) < 2:
+            return
+        n = min(set(range(1, 9)) - graphs.keys())
+        assert eng.n_active > 0
+        before = [t.clone() for t in _static_buffers(eng)]
+        graphs[n] = eng._horizons._capture(n)
+        torch.cuda.synchronize()
+        for a, b in zip(before, _static_buffers(eng)):
+            assert torch.equal(a, b)
+        forced.append(n)
+
+    got = _horizon_run(eng, capture_one_more)
+    assert forced
+    assert got[:3] == expect

@@ -1,0 +1,106 @@
+"""The fused horizon's static buffers, on the CPU.
+
+On the card ``ContinuousEngine`` replays each fused horizon as a captured
+CUDA graph (``serve.engine.HorizonGraphs``), which reads and writes fixed
+addresses.  On the CPU the same body runs uncaptured on the same static
+buffers.  These tests drive the engine through ``start``, admission
+rounds, horizons, retirements and re-admissions on the qwen2-0.5b and
+recurrentgemma-2b smoke configs, contiguous and paged (recurrentgemma
+keeps its contiguous rolling cache under a paged plan), at K in {2, 4},
+and hold it to what capture depends on and to the reference:
+
+* every cache leaf, ``idx``, ``pt``, each device-state tensor and each
+  leaf of the static trace keeps its ``data_ptr()`` throughout;
+* the tokens, admission order, admission steps and retirement steps equal
+  a live ``repro`` run at fp32 (the ``_reference`` helpers of
+  ``test_torch_engine.py`` and ``test_torch_recurrent_engine.py``);
+* ``compile_count()`` is 0 (nothing is captured on the CPU) and the
+  kernels' launch counters are untouched.
+
+Graph capture and replay themselves run on the card only
+(``test_torch_gpu.py``, ``chip_smoke.py``).
+"""
+
+import pytest
+
+from repro_torch.core.plan import EndpointPlan as TPlan
+from repro_torch.core.plan import SharingVector as TVector
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.models.params import tree_leaves
+from repro_torch.serve.engine import ContinuousEngine as TEngine
+from repro_torch.serve.engine import Request as TRequest
+from tests import test_torch_engine as qwen2
+from tests import test_torch_recurrent_engine as rgemma
+
+
+def _addresses(eng):
+    """{buffer name: data_ptr()} of every static buffer the horizon body
+    reads or writes."""
+    cache = eng._cache
+    out = {f"stack[{i}]": t.data_ptr()
+           for i, t in enumerate(tree_leaves(cache["stack"]))}
+    out["idx"] = cache["idx"].data_ptr()
+    if "pt" in cache:
+        out["pt"] = cache["pt"].data_ptr()
+    out.update({f"state.{k}": t.data_ptr()
+                for k, t in eng._dev_state.items()})
+    out.update({f"trace.{k}": t.data_ptr()
+                for k, t in eng._horizons.trace.items()})
+    return out
+
+
+def _reference(arch, horizon, pages):
+    if arch == "qwen2-0.5b":
+        return qwen2._reference(horizon, pages)
+    return rgemma._reference(horizon)
+
+
+def _engine(arch, horizon, pages):
+    if arch == "qwen2-0.5b":
+        _, tcfg, _, tparams = qwen2._served()
+        return TEngine(tcfg, tparams, device="cpu",
+                       plan=qwen2._plan(TPlan, TVector, horizon, pages)), \
+            qwen2._specs()
+    _, tcfg, _, tparams = rgemma._served()
+    return TEngine(tcfg, tparams, device="cpu",
+                   plan=rgemma._plan(TPlan, TVector, horizon, pages)), \
+        rgemma._specs()
+
+
+@pytest.mark.parametrize("pages", [False, True], ids=["contiguous", "pages4"])
+@pytest.mark.parametrize("horizon", [2, 4])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b"])
+def test_horizon_body_keeps_its_buffers_and_serves_the_reference(
+        arch, horizon, pages):
+    eng, specs = _engine(arch, horizon, pages)
+    for rid, (prompt, max_new, eos) in enumerate(specs):
+        eng.submit(TRequest(rid=rid, prompt=prompt, max_new_tokens=max_new,
+                            eos_id=eos))
+    launches = (dict(fa_ops.LAUNCHES), dict(rglru_ops.LAUNCHES))
+    eng.start()
+    fixed = _addresses(eng)
+    retired = 0
+    while eng.has_work:                 # ContinuousEngine.run's loop
+        eng.admit_waiting()
+        assert _addresses(eng) == fixed, "admission moved a buffer"
+        done = eng.step()
+        retired += len(done)
+        assert _addresses(eng) == fixed, "a horizon moved a buffer"
+        if not done and eng.n_active == 0:
+            break
+    assert eng.paged == (pages and arch == "qwen2-0.5b")
+    assert retired == len(specs)
+    assert len(eng.admit_order) > eng.n_slots     # slots were re-admitted
+    got = ({r.rid: list(r.output) for r in eng.done}, eng.admit_order,
+           eng.admit_steps, eng.retire_steps)
+    expect, jstats = _reference(arch, horizon, pages)
+    assert got[0] == expect[0]                       # tokens
+    assert got[1] == expect[1]                       # admission order
+    assert got[2] == expect[2]                       # admission steps
+    assert got[3] == expect[3]                       # retirement steps
+    for key in ("decode_steps", "decode_calls", "slot_steps",
+                "busy_slot_steps"):
+        assert eng.stats[key] == jstats[key], key
+    assert eng.compile_count() == 0
+    assert (fa_ops.LAUNCHES, rglru_ops.LAUNCHES) == launches

@@ -137,18 +137,22 @@ def test_connect_serves_recurrentgemma_without_kernel_launches_on_cpu():
 
 
 def test_trace_serve_windows_on_the_cpu():
-    """The profiling tool's two windows run on any device (on the CPU
-    there are no kernel events, so no idle share) and the engine still
-    serves every request."""
+    """The profiling tool's windows run on any device (on the CPU there
+    are no kernel events, so no idle share, and no graph is captured) and
+    the engine still serves every request."""
     from repro_torch.launch import trace_serve
     _, tcfg, _, tparams = _served()
     eng = TEngine(tcfg, tparams, plan=_plan(TPlan, TVector, 4),
                   device="cpu")
     prompts = [p for p, _, _ in _specs()[:5]]
-    admission, decode = trace_serve.trace(eng, prompts, 6, 2, 3)
+    admission, decode, graph, unprofiled = trace_serve.trace(
+        eng, prompts, 6, 2, 3)
     assert admission["prefills"] == N_SLOTS
     assert admission["prompt_tokens"] == sum(map(len, prompts[:N_SLOTS]))
-    # budgets of 6: a horizon of 4, then one cut at the last live step
+    # budgets of 6: a horizon of 4, then one cut at the last live step,
+    # both in the eager body's window; the first round is then drained
     assert decode["decode_steps"] == 6 and decode["batch"] == N_SLOTS
+    assert graph["decode_steps"] == unprofiled["decode_steps"] == 0
+    assert graph["graphs"] == eng.compile_count() == 0
     assert admission["device_idle_share"] is None
     assert sorted(len(r.output) for r in eng.done) == [6] * 5
