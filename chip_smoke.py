@@ -74,7 +74,26 @@ Phases (any failure exits non-zero, without the final result line):
    (rolling layers take plain decode attention, as in the reference);
 9. the recurrentgemma smoke config at fp32 served on the card and on the
    CPU, prompts past its window of 16: the tokens must agree;
-10. per kernel: its error against the plain version at the main path's
+10. qwen2-0.5b at full width on phase 4's weights (bf16, 8 slots,
+   max_len 1024, horizon 8) through the rest of the serving surface:
+   the wave executor on 8 prompts of 128 and 8 of 512 tokens (every
+   request its 64 tokens; flash launched 48 and ragged decode 3072
+   times; its agreement with the continuous engine printed, not gated:
+   other GEMM shapes in bf16); prefill/decode disaggregation
+   (``prefill_only`` on one engine, the payloads decoded on another)
+   contiguous and paged, equal on every token to a co-located engine at
+   exact-length admission, with ``kv_tokens`` and ``kv_bytes`` checked;
+   live migration after 2 horizons (``export_sessions``, contiguous to
+   contiguous, paged to paged, paged to contiguous), equal on every
+   token to the uninterrupted run, the source's pages all free;
+   ``evacuate`` with 8 live and 8 queued requests (prefixes, pages,
+   graphs), then 8 fresh requests equal to a fresh engine's with no new
+   capture; ``connect(obs=enabled_obs())`` (the trace validates, one
+   span per request, the engine counters equal ``stats``, one graph);
+   ``replan`` between two runs (one regroup, the graphs kept, one
+   transition); times export and handoff admission per session against
+   the copy bound (garbage collected before, none during);
+11. per kernel: its error against the plain version at the main path's
    shapes (the decode kernels at phase 4's and phase 5's caches, 1024 and
    4096 keys; the flash kernel at both models' prefill shapes and at
    qwen2-0.5b's batched admission of 8 x 4096 rows; held to the
@@ -1125,6 +1144,339 @@ def smoke_recurrentgemma_card_vs_cpu() -> None:
 
 # ----- phase 10 --------------------------------------------------------------
 
+#: the wave phase's prompt lengths: two waves of N_SLOTS
+WAVE_PROMPTS = (128,) * N_SLOTS + (512,) * N_SLOTS
+
+
+def _sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def _timed_ms(fn):
+    """-> (fn's result, its ms on a synchronised host clock).  Garbage
+    collection runs first and is off inside: a collection there would
+    free earlier engines (their graphs and caches) on this clock."""
+    import gc
+    gc.collect()
+    _sync()
+    gc.disable()
+    try:
+        t = time.perf_counter()
+        result = fn()
+        _sync()
+        return result, (time.perf_counter() - t) * 1e3
+    finally:
+        gc.enable()
+
+
+def _engine(cfg, weights, pages: bool, **plan_fields):
+    """A continuous engine on the card over phase 4's plan (contiguous or
+    paged level 4), with ``plan_fields`` replaced."""
+    from repro_torch.serve.engine import ContinuousEngine
+    plan = dataclasses.replace(_plan(pages), **plan_fields)
+    return ContinuousEngine(cfg, weights, plan, device="cuda")
+
+
+def _requests(prompts, rid0: int = 0, handoffs=None):
+    """One request of MAX_NEW tokens per prompt, rids from ``rid0``; with
+    ``handoffs`` each carries its KV payload and the payload's rid."""
+    from repro_torch.serve.engine import Request
+    handoffs = handoffs or [None] * len(prompts)
+    return [Request(rid=rid0 + i if h is None else h.rid, prompt=p,
+                    max_new_tokens=MAX_NEW, kv=h)
+            for i, (p, h) in enumerate(zip(prompts, handoffs))]
+
+
+def _serve(eng, requests) -> dict:
+    """Submit ``requests`` to ``eng`` and run it; -> {rid: tokens} of the
+    requests this run retired."""
+    for r in requests:
+        eng.submit(r)
+    n_done = len(eng.done)
+    return {r.rid: list(r.output) for r in eng.run()[n_done:]}
+
+
+def _agree(a: dict, b: dict):
+    """-> (tokens equal at the same place, tokens of ``a``)."""
+    same = sum(x == y for rid in a for x, y in zip(a[rid], b.get(rid, [])))
+    return same, sum(map(len, a.values()))
+
+
+def _wave_vs_continuous(cfg, weights, card, bad) -> dict:
+    """The wave executor through ``connect``: 16 requests of 64 tokens,
+    8 prompts of 128 and 8 of 512 tokens (two waves of 8), then the
+    continuous engine on the same prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import connect
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in WAVE_PROMPTS]
+    fresh_peak()
+    client = connect(cfg, executor="wave", n_slots=N_SLOTS, max_len=SMAX,
+                     params=weights)
+    rids = [client.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    model, prefill_s = client.engine.model, [0.0]
+    prefill = model.prefill
+
+    def timed_prefill(*args, **kw):
+        _sync()
+        t = time.perf_counter()
+        result = prefill(*args, **kw)
+        _sync()
+        prefill_s[0] += time.perf_counter() - t
+        return result
+
+    model.prefill = timed_prefill
+    reset_counts()
+    t0 = time.perf_counter()
+    out = client.run()
+    _sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    del model.prefill
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wave = {r: out[r] for r in rids}
+    n_tok = sum(map(len, wave.values()))
+    dec_s = wall - prefill_s[0]
+    expect = {k: 0 for k in counts}
+    expect["flash_attention"] = 2 * cfg.n_layers
+    expect["ragged_decode"] = 2 * MAX_NEW * cfg.n_layers
+    log(f"wave: {len(wave)} requests ({N_SLOTS} x {WAVE_PROMPTS[0]} and "
+        f"{N_SLOTS} x {WAVE_PROMPTS[-1]} tokens), {n_tok} tokens in "
+        f"{wall:.3f}s ({n_tok / wall:.1f} tok/s with prefill); decode "
+        f"{n_tok / dec_s:.1f} tok/s ({dec_s:.3f}s, prefill {prefill_s[0]:.3f}"
+        f"s); max_memory_allocated {peak:.2f} GiB; launches {counts} "
+        f"(expected {expect}); on {card}")
+    if any(len(t) != MAX_NEW or not all(0 <= x < cfg.vocab for x in t)
+           for t in wave.values()):
+        bad.append(f"wave: a request came back without its {MAX_NEW} "
+                   f"tokens")
+    if counts != expect:
+        bad.append(f"wave: launches {counts} != {expect}")
+    outs, eng, _, cont_s, _ = serve_once(cfg, weights, prompts, False,
+                                         "cuda")
+    tok = eng.stats["busy_slot_steps"]
+    same, total = _agree(wave, {r: o for r, o in zip(rids, outs)})
+    log(f"  continuous on the same prompts: decode {tok / cont_s:.1f} "
+        f"tok/s ({eng.compile_count()} graphs, capture included); wave "
+        f"vs continuous {same}/{total} tokens agree ({same / total:.4f}, "
+        f"bf16: other GEMM shapes, not gated); on {card}")
+    return {"wave_tok_s": n_tok / dec_s, "continuous_tok_s": tok / cont_s,
+            "agree": same / total}
+
+
+def _disaggregation(cfg, weights, prompts, card, bad) -> dict:
+    """Engine P prefills (``prefill_only``), engine D admits the payloads
+    and decodes, against one co-located engine, all at exact-length
+    admission (the same GEMM shapes), contiguous and paged."""
+    from repro_torch.serve.engine import _cache_bytes
+    admit_ms = {}
+    for pages in (False, True):
+        layout = "paged" if pages else "contiguous"
+        prefill = _engine(cfg, weights, pages, prefill_buckets=None)
+        handoffs = [prefill.prefill_only(r) for r in _requests(prompts)]
+        full = _cache_bytes(handoffs[0].cache, SMAX, SMAX)
+        for h, p in zip(handoffs, prompts):
+            if h.kv_tokens != len(p) or h.kv_bytes != _cache_bytes(
+                    h.cache, h.pos, SMAX) or h.kv_bytes != int(
+                    full * len(p) / SMAX):
+                bad.append(f"{layout} handoff {h.rid}: kv_tokens "
+                           f"{h.kv_tokens}, kv_bytes {h.kv_bytes}")
+        decode = _engine(cfg, weights, pages, prefill_buckets=None)
+        decode.start()
+        for r in _requests(prompts, handoffs=handoffs):
+            decode.submit(r)
+        _, ms = _timed_ms(decode.admit_waiting)
+        admit_ms[layout] = ms / len(prompts)
+        reset_counts()
+        got = _serve(decode, [])
+        counts = read_counts()
+        colocated = _serve(_engine(cfg, weights, pages,
+                                   prefill_buckets=None), _requests(prompts))
+        same, total = _agree(got, colocated)
+        name = "paged_decode" if pages else "ragged_decode"
+        log(f"disaggregated {layout}: {len(handoffs)} payloads of "
+            f"{min(h.kv_bytes for h in handoffs)} to "
+            f"{max(h.kv_bytes for h in handoffs)} bytes ({full} a full "
+            f"session); handoff admission {admit_ms[layout]:.4f} ms a "
+            f"session; decode launches {counts[name]} in "
+            f"{decode.stats['decode_steps']} steps, flash "
+            f"{counts['flash_attention']} ({decode.compile_count()} "
+            f"graphs); vs co-located {same}/{total} tokens agree; on {card}")
+        if got != colocated:
+            bad.append(f"disaggregated {layout} != co-located")
+        if counts["flash_attention"] or counts[name] != \
+                cfg.n_layers * decode.stats["decode_steps"]:
+            bad.append(f"disaggregated {layout}: launches {counts}")
+    return {"admit_ms": admit_ms, "full_bytes": full}
+
+
+def _migration(cfg, weights, prompts, card, bad) -> dict:
+    """Engine A serves 2 horizons and exports every session; engine B
+    admits the payloads and finishes; against the uninterrupted run of
+    A's plan, for contiguous to contiguous, paged to paged and paged to
+    contiguous."""
+    export_ms = {}
+    whole = {pages: _serve(_engine(cfg, weights, pages), _requests(prompts))
+             for pages in (False, True)}
+    for src, dst in ((False, False), (True, True), (True, False)):
+        pair = (f"{'paged' if src else 'contiguous'} -> "
+                f"{'paged' if dst else 'contiguous'}")
+        a = _engine(cfg, weights, src)
+        for r in _requests(prompts):
+            a.submit(r)
+        a.start()
+        a.admit_waiting()
+        a.step()
+        a.step()
+        handoffs, ms = _timed_ms(a.export_sessions)
+        export_ms[pair] = ms / len(handoffs)
+        b = _engine(cfg, weights, dst)
+        got = _serve(b, _requests([prompts[h.rid] for h in handoffs],
+                                  handoffs=handoffs))
+        same, total = _agree(got, whole[src])
+        freed = a.page_pool is None or (a.page_pool.live_pages == 0 and
+                                        a.page_pool.free_pages ==
+                                        a.page_pool.total_pages)
+        log(f"migration {pair}: {len(handoffs)} sessions exported after "
+            f"{a.stats['decode_steps']} steps ({export_ms[pair]:.4f} ms a "
+            f"session, {a.stats['host_syncs']} host syncs on A); vs "
+            f"uninterrupted {same}/{total} tokens agree; A's pages all "
+            f"free {freed}; graphs A {a.compile_count()}, B "
+            f"{b.compile_count()}; on {card}")
+        if got != whole[src] or len(handoffs) != len(prompts) or not freed:
+            bad.append(f"migration {pair}: tokens, sessions or pages")
+    return {"export_ms": export_ms}
+
+
+def _evacuation(cfg, weights, prompts, paged_outs, card, bad) -> None:
+    """An engine on phase 4's paged plan with 8 live and 8 queued
+    requests evacuates after 2 horizons, then serves 8 fresh requests."""
+    eng = _engine(cfg, weights, True)
+    for r in _requests(prompts):
+        eng.submit(r)
+    eng.start()
+    eng.admit_waiting()
+    eng.step()
+    eng.step()
+    graphs = eng.compile_count()
+    live, queued = eng.evacuate()
+    prefix_ok = all(r.output == paged_outs[r.rid][:len(r.output)]
+                    and len(r.output) == 2 * HORIZON for r in live)
+    pool = eng.page_pool
+    emitted = sorted({len(r.output) for r in live})
+    log(f"evacuation: {len(live)} live (emitted {emitted} tokens, equal "
+        f"to phase 4's prefixes {prefix_ok}), {len(queued)} queued "
+        f"(emitted {sorted({len(r.output) for r in queued})}); "
+        f"pages live {pool.live_pages}, free {pool.free_pages} of "
+        f"{pool.total_pages}; graphs {graphs}")
+    if len(live) != N_SLOTS or not prefix_ok or len(queued) != \
+            len(prompts) - N_SLOTS or any(r.output for r in queued) or \
+            pool.live_pages or pool.free_pages != pool.total_pages or \
+            eng.n_active or eng.queue:
+        bad.append("evacuation: live, queued or pages")
+    fresh = prompts[:N_SLOTS]
+    again = _serve(eng, _requests(fresh, rid0=100))
+    expect = _serve(_engine(cfg, weights, True), _requests(fresh, rid0=100))
+    same, total = _agree(again, expect)
+    log(f"  re-served {len(again)} fresh requests: {same}/{total} tokens "
+        f"equal a fresh engine's; graphs {graphs} -> "
+        f"{eng.compile_count()}; on {card}")
+    if again != expect or eng.compile_count() != graphs:
+        bad.append("evacuation: the re-served tokens or a new capture")
+
+
+def _obs_run(cfg, weights, prompts, card, bad) -> None:
+    """``connect(..., obs=enabled_obs())`` on phase 4's contiguous plan:
+    the trace validates, one request span per request, the registry's
+    engine counters equal ``engine.stats``."""
+    from repro_torch.obs import enabled_obs, validate_trace
+    from repro_torch.serve import connect
+    obs = enabled_obs()
+    client = connect(cfg, _plan(False), params=weights, obs=obs)
+    client.generate(prompts, MAX_NEW)
+    eng = client.engine
+    trace = obs.recorder.to_chrome()
+    problems = validate_trace(trace)
+    spans = sum(e["ph"] == "b" and e["name"] == "request"
+                for e in trace["traceEvents"])
+    reg = obs.metrics
+    wrong = {name: reg.total(name) for name in reg.names()
+             if name.startswith("engine.") and name[7:] in eng.stats
+             and reg.total(name) != eng.stats[name[7:]]}
+    compiles = reg.total("engine.jit_compiles")
+    log(f"obs: {len(trace['traceEvents'])} trace events, {spans} request "
+        f"spans for {len(prompts)} requests, validate_trace problems "
+        f"{problems}; {len(reg.names())} metric series, engine counters "
+        f"unequal to stats {wrong}; engine.jit_compiles {compiles}, "
+        f"compile_count() {eng.compile_count()}; on {card}")
+    if problems or spans != len(prompts) or wrong or \
+            not compiles == eng.compile_count() == 1:
+        bad.append("obs: trace, spans or counters")
+
+
+def _regroup(cfg, weights, prompts, card, bad) -> None:
+    """Two runs of a client on phase 4's paged plan with ``replan``
+    between them (slot level 1 -> 2, page level 4 -> 2), against the same
+    two runs without it."""
+    from repro_torch.core.plan import SharingVector
+    from repro_torch.serve import connect
+    seconds = {}
+    for replan in (True, False):
+        client = connect(cfg, _plan(True), params=weights)
+        client.generate(prompts[:N_SLOTS], MAX_NEW)
+        eng = client.engine
+        graphs = dict(eng._horizons.graphs)
+        if replan:
+            client.replan(SharingVector(slots=2, pages=2))
+        seconds[replan] = client.generate(prompts[N_SLOTS:], MAX_NEW)
+        if replan:
+            ok = (eng.stats["regroups"] == 1 and len(client.transitions) == 1
+                  and eng._horizons.graphs == graphs
+                  and eng.pool.level == 2 and eng.page_pool.level == 2)
+            log(f"regroup: stats regroups {eng.stats['regroups']}, "
+                f"transitions {client.transitions}, slot level "
+                f"{eng.pool.level}, page level {eng.page_pool.level}, "
+                f"graphs kept {eng._horizons.graphs == graphs} "
+                f"({eng.compile_count()})")
+            if not ok:
+                bad.append("regroup: stats, transitions, levels or graphs")
+    same, total = _agree(dict(enumerate(seconds[True])),
+                         dict(enumerate(seconds[False])))
+    log(f"  second run after replan vs without: {same}/{total} tokens "
+        f"agree (bf16, not gated); on {card}")
+
+
+def serve_surface(runs, prompts, cfg, params, card: str) -> dict:
+    """Full-width qwen2-0.5b, bf16, 8 slots, max_len 1024, horizon 8, on
+    phase 4's weights (one copy on the card for every engine here): the
+    wave executor, prefill/decode disaggregation, live migration,
+    evacuation, the observability layer and a live regroup.  -> times."""
+    from repro_torch.models import Model
+    weights = Model(cfg, "cuda").prepare_params(params)
+    bad = []
+    result = _wave_vs_continuous(cfg, weights, card, bad)
+    first = prompts[:N_SLOTS]
+    result.update(_disaggregation(cfg, weights, first, card, bad))
+    result.update(_migration(cfg, weights, first, card, bad))
+    _evacuation(cfg, weights, prompts, runs["paged_decode"]["outs"], card,
+                bad)
+    _obs_run(cfg, weights, prompts, card, bad)
+    _regroup(cfg, weights, prompts, card, bad)
+    bound_ms = result["full_bytes"] / MEM_BYTES_PER_S * 1e3
+    log(f"per session: export {result['export_ms']} ms, handoff admission "
+        f"{result['admit_ms']} ms, against a copy bound of "
+        f"{bound_ms * 1e3:.2f} us ({result['full_bytes']} bytes at "
+        f"{MEM_BYTES_PER_S / 1e12:.2f} TB/s); on {card}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return result
+
+
+# ----- phase 11 --------------------------------------------------------------
+
 def _time_ms(fn, n_layers, iters=10):
     """Mean ms per call over ``iters`` sweeps of ``n_layers`` calls, each
     on its own layer's inputs (the decode step's working set, not one
@@ -1514,6 +1866,11 @@ def main() -> int:
                serve_recurrentgemma, card)
     phase("recurrentgemma smoke config at fp32: card vs CPU",
           smoke_recurrentgemma_card_vs_cpu)
+    surface = None
+    if served is not None:
+        surface = phase("serve qwen2-0.5b: wave, handoff, migration, "
+                        "evacuation, obs at full width", serve_surface,
+                        *served, card)
     kernels = rg_kernel = flash = None
     if served is not None and long is not None:
         runs, prompts = served[:2]
@@ -1526,7 +1883,8 @@ def main() -> int:
             "recurrentgemma-2b": rg["flash_launches"]})
     if rg is not None:
         rg_kernel = phase("rglru_scan timing", time_rglru, rg["launches"])
-    if failed or kernels is None or rg_kernel is None or flash is None:
+    if failed or kernels is None or rg_kernel is None or flash is None \
+            or surface is None:
         log(f"FAILED phases: {failed}")
         return 1
     log(f"decode tok/s: qwen2-0.5b contiguous "
@@ -1541,6 +1899,9 @@ def main() -> int:
                 f"{name} {r['graph']:.1f}, {r['graph, no capture']:.1f} vs "
                 f"{r['eager']:.1f}" for name, r in rates.items())
             + f"; on {card}")
+    log(f"decode tok/s, wave vs continuous (graphs, capture included) "
+        f"on the wave phase's prompts: {surface['wave_tok_s']:.1f} vs "
+        f"{surface['continuous_tok_s']:.1f}; on {card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

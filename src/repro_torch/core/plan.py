@@ -14,7 +14,7 @@ import dataclasses
 import re
 from typing import Optional, Tuple, Union
 
-from repro_torch.core.endpoints import Category
+from repro_torch.core.endpoints import Category, level_group_size
 
 
 def _check_level(name: str, level: int) -> int:
@@ -54,6 +54,18 @@ class SharingVector:
                  else level_or_category)
         _check_level("diagonal", level)
         return cls(slots=level, channels=level, execs=level)
+
+    # ----- derived group structure --------------------------------------
+    def group_size(self, resource: str, n: int) -> int:
+        """Consumers per shared group for ``n`` units of ``resource``."""
+        return level_group_size(getattr(self, resource), n)
+
+    def exec_group_of(self, worker: int, n_workers: int) -> int:
+        """Which executable group worker ``worker`` keys into: level 4
+        puts the whole fleet in group 0.  In the port an engine records
+        its group id (``ContinuousEngine.exec_group``); its horizon
+        graphs stay its own whatever the group."""
+        return worker // self.group_size("execs", n_workers)
 
 
 Buckets = Union[None, str, Tuple[int, ...]]
@@ -176,6 +188,9 @@ class EndpointPlan:
         if self.executor != "auto":
             return self.executor
         return "fleet" if self.n_workers > 1 else "continuous"
+
+    def exec_group_of(self, worker: int) -> int:
+        return self.vector.exec_group_of(worker, self.n_workers)
 
 
 #: The six paper categories as named presets: the diagonal of the plan

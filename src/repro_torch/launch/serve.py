@@ -14,9 +14,17 @@
       --slots 8 --max-len 4096 --decode-horizon 8 --requests 8 \
       --prompt-len 1024 --mixed-lengths --max-new 64
 
+  # the legacy wave engine; a Chrome/Perfetto trace and the metrics
+  # registry of a continuous run
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --engine wave \
+      --slots 8 --max-len 1024 --requests 16 --prompt-len 128
+  python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --decode-horizon 8 --trace-out trace.json --metrics-out metrics.json
+
 Runs on the card unless ``--device cpu`` is given, and prints tokens per
-second and the kernels' launch counts.  Fleets, hints, adaptive
-re-planning, tracing and faults arrive with later slices.
+second and the kernels' launch counts.  ``--engine`` defaults to the
+continuous engine.  Fleets, hints, adaptive re-planning and faults
+arrive with later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from repro_torch.core.endpoints import Category
 from repro_torch.core.plan import EndpointPlan, SharingVector
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.rglru import ops as rglru_ops
+from repro_torch.obs import enabled_obs
 from repro_torch.serve import connect
 
 
@@ -56,10 +65,19 @@ def parse_vector(spec: str) -> SharingVector:
 
 
 def build_plan(args, ap) -> EndpointPlan:
+    if args.engine == "wave":
+        if args.decode_horizon != 1:
+            ap.error("--decode-horizon applies to the continuous engine")
+        if parse_buckets(args.prefill_buckets) not in ("auto", "pow2",
+                                                       None):
+            ap.error("--prefill-buckets applies to the continuous engine")
+        if args.pages > 1 or args.page_size or args.page_budget is not None:
+            ap.error("the wave engine has no paged cache; drop the page "
+                     "flags or use the continuous engine")
     knobs = dict(n_slots=args.slots, max_len=args.max_len,
                  decode_horizon=args.decode_horizon,
                  prefill_buckets=parse_buckets(args.prefill_buckets),
-                 executor="continuous")
+                 executor=args.engine)
     if args.page_size:
         knobs["page_size"] = args.page_size
     if args.page_budget is not None:
@@ -108,6 +126,10 @@ def main(argv=None):
                     help="endpoint plan: a preset (one of "
                          f"{[c.value for c in Category]}) or an explicit "
                          "vector 'slots=1,channels=3[,execs=4,pages=2]'")
+    ap.add_argument("--engine", default="continuous",
+                    choices=("wave", "continuous"),
+                    help="single-engine scheduler (default continuous; "
+                         "wave = static waves of equal prompt length)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--decode-horizon", type=int, default=1,
@@ -129,6 +151,14 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--mixed-lengths", action="store_true",
                     help="draw prompt lengths from {1/2, 1, 2}x prompt-len")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace-event JSON of "
+                         "the run (open at https://ui.perfetto.dev; "
+                         "DESIGN.md §14)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the unified metrics registry "
+                         "(counters/gauges/quantile sketches keyed by "
+                         "resource axis/group/worker) as JSON")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -137,8 +167,9 @@ def main(argv=None):
 
     plan = build_plan(args, ap)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    obs = enabled_obs() if (args.trace_out or args.metrics_out) else None
     client = connect(cfg, plan, seed=args.seed, device=args.device,
-                     use_ragged_kernel=True)
+                     use_ragged_kernel=True, obs=obs)
     for prompt in make_prompts(cfg, args):
         client.submit(prompt, max_new_tokens=args.max_new)
     engine = client.engine
@@ -154,7 +185,25 @@ def main(argv=None):
     where = (torch.cuda.get_device_name(engine.device) if on_card
              else "cpu")
     print(f"served {len(out)} requests, {n_tok} tokens in {dt:.3f}s "
-          f"({n_tok / dt:.1f} tok/s on {where}, includes prefill)")
+          f"({n_tok / dt:.1f} tok/s on {where}, includes prefill, "
+          f"executor={client.executor})")
+    if client.executor == "continuous":
+        report_continuous(engine)
+    print(f"kernel launches: {dict(ops.LAUNCHES, **rglru_ops.LAUNCHES)}"
+          + ("" if on_card else " (CPU: plain versions, no launches)"))
+    for rid in sorted(out)[:4]:
+        print(f"  req {rid}: {out[rid]}")
+    if args.trace_out:
+        obs.recorder.dump(args.trace_out)
+        print(f"trace: {len(obs.recorder.events)} events -> "
+              f"{args.trace_out} (open at https://ui.perfetto.dev)")
+    if args.metrics_out:
+        obs.metrics.dump(args.metrics_out)
+        print(f"metrics: {len(obs.metrics.names())} series -> "
+              f"{args.metrics_out}")
+
+
+def report_continuous(engine) -> None:
     print(f"slot pool: level {engine.pool.level} "
           f"(group size {engine.pool.group_size}), "
           f"occupancy {engine.occupancy:.2f}, "
@@ -171,10 +220,6 @@ def main(argv=None):
               f"{engine.page_size}, {pool.total_pages} pages), "
               f"hwm {pool.hwm} ({pool.hwm / pool.total_pages:.0%}), "
               f"{pool.deferrals} deferrals")
-    print(f"kernel launches: {dict(ops.LAUNCHES, **rglru_ops.LAUNCHES)}"
-          + ("" if on_card else " (CPU: plain versions, no launches)"))
-    for rid in sorted(out)[:4]:
-        print(f"  req {rid}: {out[rid]}")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,14 @@
-"""Continuous batching over an endpoint-style slot pool, in PyTorch.
+"""Serving engines in PyTorch: static wave batching and continuous
+batching over an endpoint-style slot pool.
 
-The port of ``repro.serve.engine.ContinuousEngine`` (DESIGN.md §6.2):
+``ServeEngine`` is the port of the reference's wave scheduler (DESIGN.md
+§6.1): requests group into waves of equal prompt length, each wave
+prefills batched into a fresh cache with one shared position and decodes
+until every member finishes, one host argmax a step; nothing is admitted
+mid-wave.
+
+``ContinuousEngine`` is the port of ``repro.serve.engine.ContinuousEngine``
+(DESIGN.md §6.2):
 one persistent ``n_slots``-row KV cache holds every active request at its
 own ragged length, a finished request frees its slot at once, and a
 ``SlotPool`` keyed by the plan's ``slots`` sharing level decides when a
@@ -26,8 +34,17 @@ one engine's buffers, so unlike ``SharedSteps`` it is not shared between
 the engines of an exec group.  Admission (prefill and scatter, the
 reference's jitted ``admit_packed``) and the K=1 loop stay eager.  Cache
 scatters write in place, indexed by the slot assignment the host already
-knows.  The wave ``ServeEngine``, regroup, evacuation, KV handoff and
-session export come with a later slice.
+knows.
+
+The engine's other entry points keep those addresses too: a KV handoff
+(``prefill_only`` on one engine, a ``Request`` carrying the ``KVHandoff``
+on another, DESIGN.md §17) lands through the same in-place scatters;
+``export_session`` copies a live slot out into a batch-1 contiguous cache
+and drains it in place, as ``evacuate`` drains every slot; ``regroup``
+re-keys the slot and page pools and records an exec group id.  Where the
+reference rebuilt the decode-state dict or the page table, the port
+writes the engine's tensors in place, so a graph captured before any of
+them reads the right values after.
 """
 
 from __future__ import annotations
@@ -46,9 +63,32 @@ from repro_torch.core.plan import Buckets, EndpointPlan
 from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models.model import Model
-from repro_torch.models.params import tree_leaves
+from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.serve.pages import PagePool, sentinel
 from repro_torch.serve.slots import SlotPool
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """One session's portable KV state (DESIGN.md §17): everything a
+    decode engine needs to resume a stream another engine started.  The
+    batch-1 contiguous cache (the layout of ``Model.init_cache(1,
+    max_len)``, scalar ``idx``), the next token to feed (decided, not yet
+    decoded), the resident cache position, the remaining budget and the
+    tokens already emitted.  ``kv_tokens`` / ``kv_bytes`` price the
+    transfer (the resident share of the cache's bytes).  Greedy decoding
+    is a function of the context, so resuming from this state elsewhere
+    gives the tokens the session would have had without moving."""
+
+    rid: int
+    cache: object                      # batch-1 contiguous cache | None
+    next_tok: int
+    pos: int
+    remaining: int
+    emitted: List[int] = dataclasses.field(default_factory=list)
+    eos_id: int = -1
+    kv_tokens: int = 0
+    kv_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -58,6 +98,17 @@ class Request:
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     output: Optional[list] = None      # filled by the engine
+    kv: Optional[KVHandoff] = None     # imported cache: admission merges
+    #                                    it instead of running a prefill
+
+
+def _cache_bytes(cache, tokens: int, max_len: int) -> int:
+    """Bytes of the batch-1 ``cache`` that ``tokens`` of its ``max_len``
+    positions fill: the size-proportional payload a handoff moves."""
+    total = sum(leaf.numel() * leaf.element_size()
+                for group in ("prefix", "body")
+                for leaf in tree_leaves(cache["stack"][group]))
+    return int(total * tokens / max(1, max_len))
 
 
 def _leaf_pairs(full_stack, part_stack):
@@ -281,6 +332,104 @@ class HorizonGraphs:
         return self.trace
 
 
+class ServeEngine:
+    """Static wave batching, the MPI+threads extreme of the slot pools:
+    the port of the reference's ``ServeEngine`` (see the module
+    docstring).
+
+    A wave is up to ``n_slots`` queued requests of one prompt length, the
+    largest such group first.  It prefills as one batch into a fresh
+    cache with a scalar ``idx`` (every row at the same position), then
+    decodes ``min(max_len - plen - 1, largest budget)`` steps at most,
+    one host argmax a step; a finished row keeps decoding into a masked
+    void, and a row still alive when the budget runs out gets its
+    lookahead token.  On the card the prefill runs the flash kernel and
+    each step the ragged decode kernel (``cur`` expanded per row); a
+    rolling layer keeps plain decode attention.  No graph: the reference
+    jits this step per shape but fuses no horizon here."""
+
+    def __init__(self, cfg: ArchConfig, params, plan: EndpointPlan,
+                 device=None):
+        if cfg.input_mode != "tokens" or cfg.is_encdec:
+            raise ValueError("the wave engine serves decoder-only token "
+                             "models")
+        self.cfg = cfg
+        self.model = Model(cfg, device)
+        self.device = self.model.device
+        self.params = self.model.prepare_params(params)
+        self.plan = plan
+        self.n_slots = plan.n_slots
+        self.max_len = plan.max_len
+        self.queue: deque = deque()
+        self.done: List[Request] = []
+        self.latency: Dict[int, float] = {}      # rid -> s from run() start
+        self._t0 = 0.0
+
+    def submit(self, req: Request):
+        req.output = []
+        self.queue.append(req)
+
+    def _next_wave(self) -> List[Request]:
+        """Up to n_slots queued requests sharing one prompt length."""
+        if not self.queue:
+            return []
+        by_len: Dict[int, List[Request]] = {}
+        for r in self.queue:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        # largest group first (throughput)
+        length = max(by_len, key=lambda n: len(by_len[n]))
+        wave = by_len[length][: self.n_slots]
+        taken = {id(r) for r in wave}
+        self.queue = deque(r for r in self.queue if id(r) not in taken)
+        return wave
+
+    def _argmax(self, logits) -> np.ndarray:
+        return logits.argmax(-1).to(torch.int32).cpu().numpy()  # one sync
+
+    def _run_wave(self, wave: List[Request]):
+        b = len(wave)
+        plen = len(wave[0].prompt)
+        prompts = torch.as_tensor(
+            np.stack([np.asarray(r.prompt, np.int32) for r in wave]),
+            device=self.device)
+        cache = self.model.init_cache(b, self.max_len)
+        logits, cache = self.model.prefill(self.params, {"tokens": prompts},
+                                           cache)
+        next_tok = self._argmax(logits)
+        remaining = np.array([r.max_new_tokens for r in wave], np.int64)
+        alive = np.ones(b, bool)
+        budget = min(self.max_len - plen - 1, int(max(remaining)))
+        for _ in range(max(0, budget)):
+            if not alive.any():
+                break
+            logits, cache = self.model.decode_step(
+                self.params, cache, torch.as_tensor(next_tok,
+                                                    device=self.device))
+            produced = next_tok
+            next_tok = self._argmax(logits)
+            for i, r in enumerate(wave):
+                if not alive[i]:
+                    continue
+                r.output.append(int(produced[i]))
+                remaining[i] -= 1
+                if remaining[i] <= 0 or (r.eos_id is not None
+                                         and int(next_tok[i]) == r.eos_id):
+                    alive[i] = False
+        for i, r in enumerate(wave):
+            if alive[i]:          # wave budget exhausted
+                r.output.append(int(next_tok[i]))
+        now = time.perf_counter() - self._t0
+        for r in wave:
+            self.latency[r.rid] = now
+        self.done.extend(wave)
+
+    def run(self) -> List[Request]:
+        self._t0 = time.perf_counter()
+        while self.queue:
+            self._run_wave(self._next_wave())
+        return self.done
+
+
 class ContinuousEngine:
     """Continuous batching over an endpoint-style slot pool (see the
     module docstring), configured wholly by its ``EndpointPlan``: slots,
@@ -289,7 +438,7 @@ class ContinuousEngine:
     on eligible models."""
 
     def __init__(self, cfg: ArchConfig, params, plan: EndpointPlan,
-                 device=None):
+                 device=None, exec_group: int = 0):
         n_slots, max_len = plan.n_slots, plan.max_len
         self.cfg = cfg
         self.model = Model(cfg, device)
@@ -311,8 +460,11 @@ class ContinuousEngine:
         self.stats = {"decode_steps": 0, "decode_calls": 0,
                       "slot_steps": 0, "busy_slot_steps": 0,
                       "prefills": 0, "prefilled_requests": 0,
-                      "host_syncs": 0}
+                      "host_syncs": 0, "regroups": 0}
         self.use_ragged_kernel = plan.use_ragged_kernel
+        #: the exec group id this engine keys into (the plan's execs
+        #: axis); recorded only: its horizon graphs are its own
+        self.exec_group = exec_group
         # ----- paged KV cache (plan-gated; DESIGN.md §13) ----------------
         self.page_pool: Optional[PagePool] = None
         self.page_size = 0
@@ -470,13 +622,225 @@ class ContinuousEngine:
         self.retire_steps[req.rid] = self._step_no
         self.done.append(req)
         self._slot_req[slot] = None
+        self._release_pages(slot)
+
+    def _release_pages(self, slot: int):
+        """Return the slot's pages AND sentinel its device table row, in
+        place: a drained slot still rides the batched decode (horizon-1
+        mode) and must not write into pages a new tenant now owns."""
         if self.page_pool is not None:
-            # return the pages AND sentinel the slot's device table row: a
-            # drained slot still rides the batched decode (horizon-1
-            # mode) and must not write into pages a new tenant now owns
             self.page_pool.free(slot)
             self._pt[slot] = sentinel(self.page_pool.total_pages)
-            self._cache["pt"][slot] = int(self._pt[slot, 0])   # in place
+            self._cache["pt"][slot] = int(self._pt[slot, 0])
+
+    def _drain(self, slots: Sequence[int]):
+        """Free ``slots`` without retiring their requests (an export or an
+        evacuation: no ``done`` or latency entry): pages go back to the
+        pool, table rows and, in fused mode, the device rows drain, all in
+        place."""
+        for slot in slots:
+            self._slot_req[slot] = None
+            self._remaining[slot] = 0
+            self._release_pages(slot)
+        if slots and self._dev_state is not None:
+            s_idx = self._dev(np.asarray(slots, np.int64))
+            self._dev_state["finished"][s_idx] = True
+            self._dev_state["remaining"][s_idx] = 0
+
+    # ----- prefill/decode disaggregation (DESIGN.md §17) -----------------
+    def prefill_only(self, req: Request) -> KVHandoff:
+        """Prefill-role service: the batch-1 exact-length prefill, returned
+        as the session's portable KV payload instead of binding a slot.
+        Exact-length prefill gives the bucketed admission's tokens, so
+        decoding the payload elsewhere serves the co-located tokens."""
+        req.output = []
+        if len(req.prompt) >= self.max_len:
+            raise ValueError(
+                f"prompt of {len(req.prompt)} tokens cannot fit max_len="
+                f"{self.max_len}")
+        prompt = self._dev(np.asarray(req.prompt, np.int32)[None])
+        one = self.model.init_cache(1, self.max_len)
+        logits, one = self.model.prefill(self.params, {"tokens": prompt},
+                                         one)
+        first = int(logits.argmax(-1)[0])                   # one sync
+        self.stats["prefills"] += 1
+        self.stats["prefilled_requests"] += 1
+        self.stats["host_syncs"] += 1
+        pos = len(req.prompt)
+        return KVHandoff(
+            rid=req.rid, cache=one, next_tok=first, pos=pos,
+            remaining=max(1, req.max_new_tokens), emitted=[],
+            eos_id=-1 if req.eos_id is None else req.eos_id,
+            kv_tokens=pos, kv_bytes=_cache_bytes(one, pos, self.max_len))
+
+    def _admit_handoff(self, slot: int, req: Request):
+        """Land an imported KV payload in ``slot``: its cache merges where
+        a prefill's would have (the in-place scatters), then the slot
+        resumes at the payload's position, budget and next token.  No
+        forward pass runs."""
+        h = req.kv
+        if self.page_pool is not None:
+            _scatter_slots_paged(self._cache, h.cache, [slot], [h.pos],
+                                 self._pt, self.page_pool.total_pages)
+        else:
+            _scatter_slots(self._cache, h.cache, [slot], [h.pos])
+        req.output = list(h.emitted)
+        self._bind(slot, req, h.next_tok)
+        # _bind assumed a fresh prefill; the payload says where the
+        # session stands, and the horizon's cut reads these two mirrors
+        self._pos[slot] = h.pos
+        self._remaining[slot] = h.remaining
+        if self._dev_state is not None:
+            st = self._dev_state
+            st["tok"][slot] = h.next_tok
+            st["remaining"][slot] = h.remaining
+            st["finished"][slot] = False
+            st["eos"][slot] = int(self._eos_id[slot])
+            st["has_eos"][slot] = bool(self._has_eos[slot])
+
+    def export_session(self, slot: int) -> KVHandoff:
+        """Strip the live session in ``slot`` into a portable KV payload
+        (live decode-to-decode migration): its cache leaves as a batch-1
+        contiguous cache in the layout of ``Model.init_cache(1,
+        max_len)``, copied out of the slot's row or gathered page by page
+        (a sentinel entry clamps to the last physical page: garbage rows
+        past ``pos``, which attention never reads), and the slot drains
+        as an evacuation drains it.  In fused mode the next token and the
+        budget live on the device: reading them is the export's one host
+        sync."""
+        req = self._slot_req[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} holds no session")
+        if self._dev_state is not None:
+            st = self._dev_state
+            tok, rem = torch.stack(
+                [st["tok"][slot], st["remaining"][slot]]).tolist()
+            self.stats["host_syncs"] += 1
+        else:
+            tok, rem = int(self._next_tok[slot]), int(self._remaining[slot])
+        pos = int(self._pos[slot])
+        if self.page_pool is not None:
+            ids = self._dev(np.minimum(
+                self._pt[slot], self.page_pool.total_pages - 1).astype(
+                    np.int64))
+
+            def gather(axis):
+                def f(leaf):
+                    pages = leaf.index_select(axis, ids)
+                    shape = pages.shape
+                    return pages.reshape(shape[:axis] + (1, self.max_len)
+                                         + shape[axis + 2:])
+                return f
+        else:
+            def gather(axis):
+                return lambda leaf: leaf.narrow(axis, slot, 1).clone()
+        stack = {group: tree_map(gather(axis), self._cache["stack"][group],
+                                 torch.is_tensor)
+                 for group, axis in (("prefix", 0), ("body", 1))}
+        # a scalar idx, as init_cache(1, ...) has; the scatters set it
+        # into one row of a per-slot cache
+        one = {"stack": stack, "idx": self._cache["idx"][slot].clone()}
+        self._drain([slot])
+        return KVHandoff(
+            rid=req.rid, cache=one, next_tok=tok, pos=pos, remaining=rem,
+            emitted=list(req.output or []),
+            eos_id=-1 if req.eos_id is None else req.eos_id,
+            kv_tokens=pos, kv_bytes=_cache_bytes(one, pos, self.max_len))
+
+    def export_sessions(self) -> List[KVHandoff]:
+        """Every live slot leaves as a KV payload, in slot order; the
+        admission queue stays: it holds no KV yet."""
+        return [self.export_session(slot)
+                for slot, req in enumerate(self._slot_req)
+                if req is not None]
+
+    def evacuate(self) -> Tuple[List[Request], List[Request]]:
+        """Fail-stop teardown (DESIGN.md §15): pop every resident request,
+        live slots and the queued backlog, without retiring any (no
+        ``done`` or latency entry).  Pages return to the pool, table rows
+        and device rows drain in place, and the engine stays steppable,
+        its graphs with it.  -> ``(live, queued)``: the live requests
+        carry their emitted prefix in ``output``."""
+        live_slots = [slot for slot, req in enumerate(self._slot_req)
+                      if req is not None]
+        live = [self._slot_req[slot] for slot in live_slots]
+        self._drain(live_slots)
+        queued = list(self.queue)
+        self.queue.clear()
+        return live, queued
+
+    # ----- observability and live re-planning ----------------------------
+    def publish_metrics(self, registry, worker: int = 0) -> None:
+        """Publish this engine's absolute counters into an
+        ``obs.MetricsRegistry`` (DESIGN.md §14) under a ``worker`` label;
+        ``set_total`` is idempotent, so any cadence is safe.
+        ``engine.jit_compiles`` reads ``compile_count()``: the horizon
+        graphs (the reference counts its jit specializations)."""
+        for name, axis in (("decode_steps", "execs"),
+                           ("decode_calls", "execs"),
+                           ("host_syncs", "execs"),
+                           ("prefills", "execs"),
+                           ("prefilled_requests", "execs"),
+                           ("slot_steps", "slots"),
+                           ("busy_slot_steps", "slots"),
+                           ("regroups", "slots")):
+            registry.counter(f"engine.{name}", axis=axis,
+                             worker=worker).set_total(self.stats[name])
+        registry.counter("engine.jit_compiles", axis="execs",
+                         group=self.exec_group,
+                         worker=worker).set_total(self.compile_count())
+        registry.gauge("engine.queue_depth", axis="channels",
+                       worker=worker).set(len(self.queue))
+        if self.page_pool is not None:
+            self.page_pool.publish_metrics(registry, axis="pages",
+                                           worker=worker)
+
+    def regroup(self, slot_level: Optional[int] = None,
+                exec_group: Optional[int] = None,
+                page_level: Optional[int] = None) -> bool:
+        """Live migration (DESIGN.md §12): re-key the slot pool, the page
+        budgets and the exec group without dropping queued or in-flight
+        requests; -> True when anything changed.
+
+        Slot and page regroups are admission and budget policy only
+        (``SlotPool.regroup``, ``PagePool.regroup``): live slots keep
+        decoding and every page mapping survives.  ``exec_group`` is
+        recorded, not swapped: the reference moves the engine onto
+        another group's shared executables, but a horizon graph binds
+        this engine's own buffers, so the engine keeps its graphs and
+        ``compile_count()`` does not move (what a group shares is the
+        fleet slice's design).  No path touches the cache or the decode
+        state, so the tokens do not change."""
+        changed = False
+        if slot_level is not None and int(slot_level) != self.pool.level:
+            self.pool.regroup(slot_level)
+            changed = True
+        if page_level is not None:
+            if self.page_pool is None:
+                if int(page_level) != 1:
+                    raise ValueError(
+                        "cannot regroup pages on a contiguous-layout "
+                        "engine: the physical cache layout is structural "
+                        "— connect with a paged plan (vector.pages > 1 "
+                        "or page_size) first")
+            elif int(page_level) != self.page_pool.level:
+                self.page_pool.regroup(int(page_level))
+                changed = True
+        if exec_group is not None and int(exec_group) != self.exec_group:
+            self.exec_group = int(exec_group)
+            changed = True
+        if changed:
+            self.stats["regroups"] += 1
+            # the plan follows the axes the engine owns; the execs level
+            # is fleet-relative, so the client's plan keeps it
+            self.plan = dataclasses.replace(
+                self.plan, preset=None,
+                vector=dataclasses.replace(
+                    self.plan.vector, slots=self.pool.level,
+                    pages=(self.page_pool.level
+                           if self.page_pool is not None
+                           else self.plan.vector.pages)))
+        return changed
 
     # ----- external stepping ---------------------------------------------
     def start(self):
@@ -556,8 +920,10 @@ class ContinuousEngine:
                 # reserve the full worst-case page span up front; a dry
                 # pool DEFERS in FIFO order
                 req = self.queue[0]
-                span = min(len(req.prompt) + req.max_new_tokens,
-                           self.max_len)
+                # a KV import's span is keyed on its resident cache
+                # (possibly mid-decode), not on the prompt
+                base = req.kv.pos if req.kv is not None else len(req.prompt)
+                span = min(base + req.max_new_tokens, self.max_len)
                 need = max(1, -(-span // self.page_size))
                 if self.page_pool.alloc(slot, need) is None:
                     break
@@ -568,6 +934,11 @@ class ContinuousEngine:
             self.stats["page_hwm"] = self.page_pool.hwm
         if not batch:
             return 0
+        kv_batch = [(s, r) for s, r in batch if r.kv is not None]
+        for slot, req in kv_batch:      # cache merge, no forward pass
+            self._admit_handoff(slot, req)
+        n_admitted = len(batch)
+        batch = [(s, r) for s, r in batch if r.kv is None]
         if self.prefill_buckets:
             cap = self.prefill_buckets[-1]
             fit = [(s, r) for s, r in batch if len(r.prompt) <= cap]
@@ -579,7 +950,7 @@ class ContinuousEngine:
         else:
             for slot, req in batch:
                 self._admit(slot, req)
-        return len(batch)
+        return n_admitted
 
     def step(self) -> List[Request]:
         """Decode ``decode_horizon`` steps over every live slot; ->

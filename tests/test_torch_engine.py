@@ -170,12 +170,20 @@ def test_generate_returns_outputs_in_input_order():
 
 
 def test_unported_executors_raise():
+    """The fleet, adaptive re-planning and the tuned-plan repository
+    raise NotImplementedError until their slices; faults on a
+    single-engine plan are the caller's error (ValueError), as in the
+    reference, and the wave executor serves."""
     _, tcfg, _, tparams = _served()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="fleet slice"):
         tserve.connect(tcfg, params=tparams, n_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tserve.connect(tcfg, params=tparams, executor="wave", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="adaptive slice"):
         tserve.connect(tcfg, params=tparams, adaptive=True, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="planner slice"):
+        tserve.connect(tcfg, params=tparams, device="cpu",
+                       plan_repository=object())
+    with pytest.raises(ValueError, match="fleet"):
         tserve.connect(tcfg, params=tparams, device="cpu", faults="x")
+    wave = tserve.connect(tcfg, params=tparams, executor="wave",
+                          device="cpu")
+    assert wave.executor == "wave"

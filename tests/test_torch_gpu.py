@@ -282,18 +282,25 @@ def test_model_decode_runs_the_kernels(cuda, pages):
                                atol=1e-4)
 
 
-def _submit_requests(eng):
+def _requests():
     """Eleven requests for a 48-token cache: ragged prompts and budgets,
     one EOS id, and one prompt that reaches the cache edge."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(5)
+    out = []
     for rid in range(10):
         prompt = rng.integers(1, 128, size=int(rng.integers(2, 20)))
-        eng.submit(Request(rid=rid, prompt=prompt.astype(np.int32),
+        out.append(Request(rid=rid, prompt=prompt.astype(np.int32),
                            max_new_tokens=int(rng.integers(1, 9)),
                            eos_id=7 if rid == 4 else None))
-    eng.submit(Request(rid=10, prompt=np.arange(1, 41, dtype=np.int32),
+    out.append(Request(rid=10, prompt=np.arange(1, 41, dtype=np.int32),
                        max_new_tokens=20))
+    return out
+
+
+def _submit_requests(eng):
+    for req in _requests():
+        eng.submit(req)
 
 
 def _engine_run(cfg, params, device, horizon, pages, buckets="auto"):
@@ -844,3 +851,106 @@ def test_capture_with_live_slots_changes_nothing(cuda, arch, pages):
     got = _horizon_run(eng, capture_one_more)
     assert forced
     assert got[:3] == expect
+
+
+# ----- handoff, export and evacuation on engines with horizon graphs ---------
+
+def _graph_or_eager(arch, pages, eager):
+    """``_horizon_engine`` at K=4, started; ``eager`` swaps its horizon
+    runner for the eager body."""
+    eng = _horizon_engine(arch, pages, horizon=4)
+    eng.start()
+    if eager:
+        eng._run_horizon = eng._horizons.body
+    return eng
+
+
+def _outputs(requests):
+    return {r.rid: list(r.output) for r in requests}
+
+
+@pytest.mark.parametrize("arch,pages", GRAPH_CASES)
+def test_handoff_into_a_graph_engine_serves_the_eager_tokens(cuda, arch,
+                                                             pages):
+    """KV payloads from ``prefill_only`` land in an engine whose horizons
+    replay graphs; the tokens equal the eager body's on the same
+    payloads, and the graph run captured at least one graph."""
+    runs = {}
+    for eager in (False, True):
+        prefill = _horizon_engine(arch, pages, horizon=4)
+        requests = _requests()
+        for req in requests:
+            req.kv = prefill.prefill_only(req)
+        eng = _graph_or_eager(arch, pages, eager)
+        for req in requests:
+            eng.submit(req)
+        runs[eager] = _outputs(eng.run())
+        torch.cuda.synchronize()
+        assert eng.stats["prefills"] == 0
+        assert eng.compile_count() >= (0 if eager else 1)
+    assert runs[False] == runs[True]
+    assert len(runs[False]) == 11
+
+
+@pytest.mark.parametrize("arch,pages", GRAPH_CASES)
+def test_export_mid_run_resumes_the_eager_tokens(cuda, arch, pages):
+    """Engine A serves 2 horizons and exports every live session; engine
+    B admits the payloads and A's queue and finishes.  With graphs on
+    both the tokens equal the eager body's; A's pages all return."""
+    runs = {}
+    for eager in (False, True):
+        a = _graph_or_eager(arch, pages, eager)
+        _submit_requests(a)
+        a.admit_waiting()
+        a.step()
+        a.admit_waiting()
+        a.step()
+        handoffs = a.export_sessions()
+        assert handoffs and a.n_active == 0
+        if a.paged:
+            assert a.page_pool.live_pages == 0
+        queued = list(a.queue)
+        a.queue.clear()
+        by_rid = {r.rid: r for r in _requests()}
+        b = _graph_or_eager(arch, pages, eager)
+        for h in handoffs:
+            req = by_rid[h.rid]
+            req.kv = h
+            b.submit(req)
+        for req in queued:
+            b.submit(req)
+        runs[eager] = {**_outputs(a.done), **_outputs(b.run())}
+        torch.cuda.synchronize()
+    assert runs[False] == runs[True]
+    assert len(runs[False]) == 11
+
+
+@pytest.mark.parametrize("arch,pages", GRAPH_CASES)
+def test_evacuate_then_reserve_keeps_the_graphs(cuda, arch, pages):
+    """``evacuate``, at the first horizon that leaves both live and
+    queued requests, returns them; the engine then serves fresh copies
+    of all the requests with the graphs it had (still there) and the
+    eager body's tokens."""
+    runs = {}
+    for eager in (False, True):
+        eng = _graph_or_eager(arch, pages, eager)
+        _submit_requests(eng)
+        while True:
+            eng.admit_waiting()
+            eng.step()
+            if eng.n_active and eng.queue:
+                break
+        graphs = dict(eng._horizons.graphs)
+        live, queued = eng.evacuate()
+        assert live and queued and eng.n_active == 0 and not eng.queue
+        assert all(not r.output for r in queued)
+        if eng.paged:
+            assert eng.page_pool.live_pages == 0
+        n_done = len(eng.done)
+        for req in _requests():
+            eng.submit(req)
+        runs[eager] = ([list(r.output) for r in live],
+                       _outputs(eng.run()[n_done:]))
+        torch.cuda.synchronize()
+        assert all(eng._horizons.graphs[n] is g for n, g in graphs.items())
+    assert runs[False] == runs[True]

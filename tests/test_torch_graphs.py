@@ -17,6 +17,10 @@ and hold it to what capture depends on and to the reference:
 * ``compile_count()`` is 0 (nothing is captured on the CPU) and the
   kernels' launch counters are untouched.
 
+The engine's other writers are held to the same addresses: KV handoff
+admission, a live ``regroup``, ``export_session`` and ``evacuate``, after
+which the engine serves the reference's tokens again.
+
 Graph capture and replay themselves run on the card only
 (``test_torch_gpu.py``, ``chip_smoke.py``).
 """
@@ -104,3 +108,59 @@ def test_horizon_body_keeps_its_buffers_and_serves_the_reference(
         assert eng.stats[key] == jstats[key], key
     assert eng.compile_count() == 0
     assert (fa_ops.LAUNCHES, rglru_ops.LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("pages", [False, True], ids=["contiguous", "pages4"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b"])
+def test_handoff_export_evacuate_and_regroup_keep_the_buffers(arch, pages):
+    """The engine's other writers keep every static buffer where it is:
+    KV handoffs (half the requests arrive as ``prefill_only`` payloads
+    from a second engine), a live regroup of slots, pages and exec
+    group, ``export_session`` of a live slot and ``evacuate``.  The same
+    engine then serves every request afresh with the tokens of a live
+    ``repro`` run; nothing is captured on the CPU."""
+    eng, specs = _engine(arch, 4, pages)
+    prefill, _ = _engine(arch, 4, pages)
+    requests = [TRequest(rid=rid, prompt=prompt, max_new_tokens=max_new,
+                         eos_id=eos)
+                for rid, (prompt, max_new, eos) in enumerate(specs)]
+    for req in requests[: len(requests) // 2]:
+        req.kv = prefill.prefill_only(req)
+    for req in requests:
+        eng.submit(req)
+    eng.start()
+    fixed = _addresses(eng)
+
+    def admit_and_step():
+        eng.admit_waiting()
+        assert _addresses(eng) == fixed, "admission moved a buffer"
+        eng.step()
+        assert _addresses(eng) == fixed, "a horizon moved a buffer"
+
+    admit_and_step()
+    assert eng.regroup(slot_level=2, exec_group=1,
+                       page_level=2 if eng.paged else None)
+    assert _addresses(eng) == fixed, "regroup moved a buffer"
+    admit_and_step()
+    while not (eng.n_active and eng.queue):
+        admit_and_step()
+    slot = next(s for s, r in enumerate(eng._slot_req) if r is not None)
+    handoff = eng.export_session(slot)
+    assert _addresses(eng) == fixed, "export_session moved a buffer"
+    assert handoff.cache["idx"].dim() == 0
+    assert bool(eng._dev_state["finished"][slot])
+    live, queued = eng.evacuate()
+    assert _addresses(eng) == fixed, "evacuate moved a buffer"
+    assert queued and eng.n_active == 0
+    assert bool(eng._dev_state["finished"].all())
+    if eng.paged:
+        assert eng.page_pool.live_pages == 0
+        assert (eng._cache["pt"] == eng.page_pool.total_pages).all()
+    n_done = len(eng.done)
+    for rid, (prompt, max_new, eos) in enumerate(specs):
+        eng.submit(TRequest(rid=rid, prompt=prompt, max_new_tokens=max_new,
+                            eos_id=eos))
+    again = {r.rid: list(r.output) for r in eng.run()[n_done:]}
+    assert _addresses(eng) == fixed
+    assert again == _reference(arch, 4, pages)[0][0]
+    assert eng.compile_count() == 0 and eng.stats["regroups"] == 1
