@@ -93,7 +93,24 @@ Phases (any failure exits non-zero, without the final result line):
    ``replan`` between two runs (one regroup, the graphs kept, one
    transition); times export and handoff admission per session against
    the copy bound (garbage collected before, none during);
-11. per kernel: its error against the plain version at the main path's
+11. the fleet at full width: qwen2-0.5b on phase 4's weights, 4 workers
+   of 8 slots (max_len 1024, horizon 8) behind the fabric router, phase
+   4's 16 prompts and 16 more from the same range in two bursts (64 new
+   tokens each).  At fp32, each run's tokens must equal a single
+   continuous engine's on the same prompts, every one: diag1, then on
+   the same engines diag4 and adaptive diag2 (``replan``), diag4 paged
+   (page size 64), 2P+2D, a crash of worker 0 mid-decode (recovered by
+   re-prefilling prompt + emitted prefix on a survivor) and a scheduled
+   migration w1 -> w2; each run's kernel launches must equal what its
+   engines' prefills and launched horizon steps account for, no engine
+   may capture more than K graphs, and every engine must serve from the
+   one weight copy on the card.  In bf16, the fleet at exec level 4
+   (one graph memory pool for the fleet) and at exec level 1 (one per
+   engine): wall time, tok/s (tokens over the run's host time, captures
+   included, then a second run without), graphs captured, peak memory
+   and the graph pools' bytes, beside a single engine on the same
+   prompts;
+12. per kernel: its error against the plain version at the main path's
    shapes (the decode kernels at phase 4's and phase 5's caches, 1024 and
    4096 keys; the flash kernel at both models' prefill shapes and at
    qwen2-0.5b's batched admission of 8 x 4096 rows; held to the
@@ -887,13 +904,15 @@ def serve_long_prompts(cfg, params, card: str):
 
 # ----- phase 6 ---------------------------------------------------------------
 
-def _expected_launches(cfg, eng, launched: int) -> dict:
+def _expected_launches(cfg, eng, launched: int, prefills=None) -> dict:
     """Each prefill launches the flash kernel in every attention layer and
     the RG-LRU scan in every RG-LRU layer; each decode step launched, the
     decode kernel in every layer of a stack that can page (a rolling
-    window takes plain decode attention, as in the reference)."""
+    window takes plain decode attention, as in the reference).
+    ``prefills`` defaults to every prefill the engine ran."""
     n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
-    prefills = eng.stats["prefills"]
+    if prefills is None:
+        prefills = eng.stats["prefills"]
     expect = {"ragged_decode": 0, "paged_decode": 0,
               "flash_attention": (cfg.n_layers - n_rglru) * prefills,
               "rglru_scan": n_rglru * prefills}
@@ -1477,6 +1496,317 @@ def serve_surface(runs, prompts, cfg, params, card: str) -> dict:
 
 # ----- phase 11 --------------------------------------------------------------
 
+#: the fleet phase: workers, the second burst's virtual arrival time, and
+#: the virtual time of the crash and of the migration (mid-decode of the
+#: first burst, whose admission and first horizon take about 0.8 ms)
+FLEET_WORKERS = 4
+FLEET_BURST2_NS = 1_000_000.0
+FLEET_EVENT_NS = 600_000.0
+#: heartbeat silence that declares a worker dead in the crash run: above
+#: the largest healthy wake (an admission round of 8 prompts of up to 512
+#: tokens, 1.3 ms, then a horizon of 8 steps at batch 8, 0.62 ms, in the
+#: fabric's virtual cost model), so only the crashed worker is fenced
+FLEET_DEADLINE_NS = 3_000_000.0
+
+
+def _fleet_prompts(vocab, first):
+    """Phase 4's 16 prompts at t = 0 and 16 more from the same range (64
+    to 512 tokens) one burst later; -> [(prompt, virtual arrival ns)]."""
+    return ([(p, 0.0) for p in first]
+            + [(p, FLEET_BURST2_NS) for p in _prompts(vocab, seed=8)])
+
+
+def _fleet(cfg, weights, device, vector, **kw):
+    """A fleet client of FLEET_WORKERS workers on phase 4's plan (8
+    slots, max_len 1024, horizon 8) with ``vector`` (paged when its pages
+    level is above 1, page size 64)."""
+    from repro_torch.serve import connect
+    plan = dataclasses.replace(_plan(vector.pages > 1), vector=vector,
+                               n_workers=FLEET_WORKERS, executor="auto")
+    return connect(cfg, plan, params=weights, device=device, **kw)
+
+
+class _CaptureClock:
+    """Within the block, time every horizon graph capture (its
+    ``torch.cuda.graph`` context included: synchronize, collection,
+    ``empty_cache``); ``seconds`` and ``count`` after."""
+
+    def __enter__(self):
+        from repro_torch.serve.engine import HorizonGraphs
+        self.seconds, self.count = 0.0, 0
+        self._capture = capture = HorizonGraphs._capture
+
+        def timed(graphs, n_steps):
+            t = time.perf_counter()
+            try:
+                return capture(graphs, n_steps)
+            finally:
+                self.seconds += time.perf_counter() - t
+                self.count += 1
+
+        HorizonGraphs._capture = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serve.engine import HorizonGraphs
+        HorizonGraphs._capture = self._capture
+        return False
+
+
+def _fleet_run(client, prompts_at):
+    """Serve ``prompts_at`` through the fleet client; -> (outputs in
+    prompt order, launch counts of the run, the launches its engines'
+    prefills and launched horizon steps account for, host seconds, host
+    seconds inside the workers' ``step`` calls: admission rounds and
+    horizons, each horizon ending in its host sync)."""
+    import torch
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.fabric import EngineWorker
+    cfg = client.cfg
+    launched, run_horizon = {}, ContinuousEngine._run_horizon
+    step_s, worker_step = [0.0], EngineWorker.step
+
+    def counted(eng, n_steps):
+        launched[id(eng)] = launched.get(id(eng), 0) + n_steps
+        return run_horizon(eng, n_steps)
+
+    def timed_step(worker, t_ns):
+        t = time.perf_counter()
+        try:
+            return worker_step(worker, t_ns)
+        finally:
+            step_s[0] += time.perf_counter() - t
+
+    prefills = {id(w.engine): w.engine.stats["prefills"]
+                for w in client.workers}
+    rids = [client.submit(p, max_new_tokens=MAX_NEW, at_ns=t)
+            for p, t in prompts_at]
+    on_card = client.device.type == "cuda"
+    ContinuousEngine._run_horizon = counted
+    EngineWorker.step = timed_step
+    try:
+        reset_counts()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = client.run()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        ContinuousEngine._run_horizon = run_horizon
+        EngineWorker.step = worker_step
+    expect = {name: 0 for name in counts}
+    for w in client.workers:
+        eng = w.engine
+        one = _expected_launches(
+            cfg, eng, launched.get(id(eng), 0),
+            eng.stats["prefills"] - prefills.get(id(eng), 0))
+        for name, n in one.items():
+            expect[name] += n
+    return [out.get(r) for r in rids], counts, expect, wall, step_s[0]
+
+
+def _pool_bytes(groups):
+    """Bytes the card holds in the graph memory pools of ``groups``
+    (segments of ``torch.cuda.memory_snapshot()`` by pool id); None when
+    the snapshot names no pools."""
+    import torch
+    ids = {tuple(g._pool) for g in groups if g._pool is not None}
+    segments = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg.get("segment_pool_id", ())) in ids)
+
+
+def _fleet_fp32(cfg32, w32, prompts_at, device, card, bad) -> dict:
+    """The fp32 runs, each gated on tokens equal to a single continuous
+    engine on the same prompts, on its launch counts, and on at most K
+    graphs per engine.  One client serves diag1, then (``replan``) diag4,
+    then (``replan``) adaptive diag2 on the same engines; each other run
+    connects its own."""
+    from repro_torch.core.plan import SharingVector
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve import connect
+    from repro_torch.serve.recovery import RecoveryPolicy
+    prompts = [p for p, _ in prompts_at]
+    single = {}
+    for pages in (False, True):
+        client = connect(cfg32, _plan(pages), params=w32, device=device)
+        single[pages] = client.generate(prompts, MAX_NEW)
+    diag = SharingVector.diagonal
+    reused = _fleet(cfg32, w32, device, diag(1))
+    runs = (
+        ("diag1", lambda: reused, None),
+        ("diag4 (replan)", lambda: reused, diag(4)),
+        ("adaptive diag2 (replan)", lambda: reused, "adaptive"),
+        ("diag4 paged", lambda: _fleet(
+            cfg32, w32, device, dataclasses.replace(diag(4), pages=4)),
+         None),
+        ("2P+2D", lambda: _fleet(cfg32, w32, device, diag(2),
+                                 roles="2P+2D"), None),
+        ("crash w0", lambda: _fleet(
+            cfg32, w32, device, diag(2),
+            faults=f"crash@{FLEET_EVENT_NS / 1e3:g}us:w0",
+            recovery=RecoveryPolicy(deadline_ns=FLEET_DEADLINE_NS)), None),
+        ("migration w1 -> w2", lambda: _fleet(
+            cfg32, w32, device, diag(1),
+            migrations=[(FLEET_EVENT_NS, 1, 2)]), None))
+    walls = {}
+    for name, make, replan in runs:
+        client = make()
+        if replan == "adaptive":
+            client.replan(diag(2), adaptive=True, adapt_window_ns=1e5)
+        elif replan is not None:
+            client.replan(replan)
+        outs, counts, expect, wall, _ = _fleet_run(client, prompts_at)
+        walls[name] = wall
+        rep = client.report
+        paged = client.plan.paged
+        same = sum(x == y for a, b in zip(outs, single[paged])
+                   for x, y in zip(a or [], b))
+        total = sum(map(len, single[paged]))
+        graphs = [w.engine.compile_count() for w in client.workers]
+        log(f"fleet fp32 {name}: {rep.n_completed}/{len(prompts)} requests, "
+            f"vector {client.plan.vector.label}, {same}/{total} tokens "
+            f"equal the single engine's ({'paged' if paged else 'contiguous'}"
+            f"); {rep.total_new_tokens} tokens in {rep.makespan_ns / 1e6:.2f} "
+            f"virtual ms, {wall:.2f}s host; graphs per engine {graphs}; "
+            f"handoffs {rep.handoffs}, migrations {rep.migrations}, "
+            f"detections {rep.detections}, recovered {len(rep.recovered)}, "
+            f"failed {len(rep.failed)}, shed {rep.n_shed}, windows "
+            f"{rep.n_windows}, transitions {len(rep.transitions)}; launches "
+            f"{counts} (expected {expect}); on {card}")
+        if outs != single[paged]:
+            bad.append(f"fleet {name}: tokens differ from the single engine")
+        if counts != expect:
+            bad.append(f"fleet {name}: launches {counts} != {expect}")
+        if max(graphs) > HORIZON:
+            bad.append(f"fleet {name}: an engine captured {max(graphs)} "
+                       f"graphs, more than K = {HORIZON}")
+        if any(w.engine.device.type != client.device.type
+               for w in client.workers):
+            bad.append(f"fleet {name}: an engine is off the client's device")
+        leaves = [tree_leaves(w.engine.params) for w in client.workers]
+        if any(len(x) != len(leaves[0]) or any(
+                a.data_ptr() != b.data_ptr() for a, b in zip(x, leaves[0]))
+               for x in leaves):
+            bad.append(f"fleet {name}: more than one weight copy")
+        checks = {"2P+2D": rep.handoffs == len(prompts),
+                  "crash w0": (rep.detections == 1 and bool(rep.recovered)
+                               and not rep.failed and not rep.shed),
+                  "migration w1 -> w2": rep.migrations == 1,
+                  "adaptive diag2 (replan)": rep.n_windows > 0}
+        if not checks.get(name, True):
+            bad.append(f"fleet {name}: report {rep.handoffs} handoffs, "
+                       f"{rep.detections} detections, {rep.migrations} "
+                       f"migrations, {rep.n_windows} windows")
+    return walls
+
+
+def _fleet_bf16(cfg, weights, prompts_at, card, bad) -> dict:
+    """bf16 at diag4 and at exec level 1 (slots and channels at 4): wall
+    time, decode tok/s (tokens over the run's host time), captures, peak
+    memory and the graph pools' bytes; a second run on the same fleet
+    (no capture); and a single engine on the same prompts."""
+    import gc
+    import torch
+    from repro_torch.core.plan import SharingVector
+    from repro_torch.serve import connect
+    result = {}
+    for execs in (1, 4):
+        gc.collect()
+        torch.cuda.empty_cache()
+        live = fresh_peak()
+        client = _fleet(cfg, weights, "cuda",
+                        SharingVector(slots=4, channels=4, execs=execs))
+        for attempt in range(2):
+            with _CaptureClock() as clock:
+                outs, _, _, wall, step_s = _fleet_run(client, prompts_at)
+            groups = {id(w.engine.group): w.engine.group
+                      for w in client.workers}
+            graphs = [w.engine.compile_count() for w in client.workers]
+            tok = sum(map(len, outs))
+            if max(graphs) > HORIZON or (attempt and clock.count):
+                bad.append(f"fleet bf16 execs={execs}: graphs per engine "
+                           f"{graphs}, {clock.count} captured in run "
+                           f"{attempt + 1}")
+            if attempt == 0:
+                pools = _pool_bytes(groups.values())
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+                result[execs] = {"tok_s": tok / wall, "wall": wall,
+                                 "captures": clock.count,
+                                 "capture_s": clock.seconds, "peak": peak,
+                                 "reserved": reserved, "pools": pools,
+                                 "groups": len(groups)}
+                log(f"fleet bf16 execs={execs} ({len(groups)} exec groups): "
+                    f"{tok} tokens in {wall:.2f}s host, {tok / wall:.1f} "
+                    f"tok/s (captures included); {clock.count} graphs "
+                    f"captured in {clock.seconds:.2f}s (graphs per engine "
+                    f"{graphs}; exec.jit_compiles "
+                    f"{client.report.metrics.total('exec.jit_compiles'):.0f}"
+                    f", every capture of the groups in this process); "
+                    f"max_memory_allocated {peak:.2f} GiB, "
+                    f"max_memory_reserved {reserved:.2f} GiB ({live:.2f} "
+                    f"GiB live before); graph pools "
+                    + (f"{pools / 2 ** 20:.1f} MiB" if pools is not None
+                       else "not measured") + f"; on {card}")
+            else:
+                result[execs]["tok_s_again"] = tok / wall
+                result[execs]["step_share"] = step_s / wall
+                log(f"  second run on the same fleet: {tok / wall:.1f} "
+                    f"tok/s, {clock.count} graphs captured; {wall:.3f}s "
+                    f"host, {step_s:.3f}s of it in the workers' steps "
+                    f"(admissions and horizons), {wall - step_s:.3f}s in "
+                    f"the router and the client; on {card}")
+        del client
+    gc.collect()
+    single = connect(cfg, _plan(False), params=weights, device="cuda")
+    prompts = [p for p, _ in prompts_at]
+    for attempt in range(2):
+        _sync()
+        with _CaptureClock() as clock:
+            t0 = time.perf_counter()
+            outs = single.generate(prompts, MAX_NEW)
+            _sync()
+            wall = time.perf_counter() - t0
+        result.setdefault("single", []).append(sum(map(len, outs)) / wall)
+        log(f"single engine bf16 on the same 32 prompts, run {attempt + 1}: "
+            f"{sum(map(len, outs))} tokens in {wall:.2f}s host, "
+            f"{result['single'][-1]:.1f} tok/s; {clock.count} graphs "
+            f"captured in {clock.seconds:.2f}s; on {card}")
+    return result
+
+
+def serve_fleet(cfg, params, first_prompts, card: str,
+                device: str = "cuda") -> dict:
+    """The fleet at full width: qwen2-0.5b on phase 4's weights, 4 workers
+    of 8 slots, max_len 1024, horizon 8, 32 requests of 64 tokens in two
+    bursts.  fp32 runs are gated on tokens, launches, graphs and one
+    weight copy; bf16 runs report the fleet's tok/s, captures and memory
+    at exec levels 1 and 4 against a single engine.  -> the bf16
+    numbers."""
+    from repro_torch.models import Model
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    w32 = Model(cfg32, device).prepare_params(params)
+    prompts_at = _fleet_prompts(cfg.vocab, first_prompts)
+    bad = []
+    walls = _fleet_fp32(cfg32, w32, prompts_at, device, card, bad)
+    del w32
+    result = {"fp32_walls": walls}
+    if device == "cuda":
+        weights = Model(cfg, device).prepare_params(params)
+        result.update(_fleet_bf16(cfg, weights, prompts_at, card, bad))
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return result
+
+
+# ----- phase 12 --------------------------------------------------------------
+
 def _time_ms(fn, n_layers, iters=10):
     """Mean ms per call over ``iters`` sweeps of ``n_layers`` calls, each
     on its own layer's inputs (the decode step's working set, not one
@@ -1866,11 +2196,13 @@ def main() -> int:
                serve_recurrentgemma, card)
     phase("recurrentgemma smoke config at fp32: card vs CPU",
           smoke_recurrentgemma_card_vs_cpu)
-    surface = None
+    surface = fleet = None
     if served is not None:
         surface = phase("serve qwen2-0.5b: wave, handoff, migration, "
                         "evacuation, obs at full width", serve_surface,
                         *served, card)
+        fleet = phase("serve qwen2-0.5b through a fleet of 4 at full width",
+                      serve_fleet, served[2], served[3], served[1], card)
     kernels = rg_kernel = flash = None
     if served is not None and long is not None:
         runs, prompts = served[:2]
@@ -1884,7 +2216,7 @@ def main() -> int:
     if rg is not None:
         rg_kernel = phase("rglru_scan timing", time_rglru, rg["launches"])
     if failed or kernels is None or rg_kernel is None or flash is None \
-            or surface is None:
+            or surface is None or fleet is None:
         log(f"FAILED phases: {failed}")
         return 1
     log(f"decode tok/s: qwen2-0.5b contiguous "
@@ -1902,6 +2234,12 @@ def main() -> int:
     log(f"decode tok/s, wave vs continuous (graphs, capture included) "
         f"on the wave phase's prompts: {surface['wave_tok_s']:.1f} vs "
         f"{surface['continuous_tok_s']:.1f}; on {card}")
+    log(f"fleet bf16, tok/s over host time (first run with captures, "
+        f"second run): exec level 4 {fleet[4]['tok_s']:.1f}, "
+        f"{fleet[4]['tok_s_again']:.1f}; exec level 1 "
+        f"{fleet[1]['tok_s']:.1f}, {fleet[1]['tok_s_again']:.1f}; single "
+        f"engine {fleet['single'][0]:.1f}, {fleet['single'][1]:.1f}; on "
+        f"{card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,17 +4,30 @@ The port's own copy of ``repro.core.plan`` minus the planner: a
 ``SharingVector`` holds independent Fig. 4b sharing levels for decode
 **slots**, dispatch **channels**, compiled **execs** and KV **pages**; an
 ``EndpointPlan`` is the resolved deployment ``serve.connect`` consumes.
-Planner hints (``Hints`` / ``resolve``) arrive with a later slice; until
-then ``as_plan`` refuses them with ``NotImplementedError``.
+``fit_budget`` is the budget loop the live controller
+(``core.adapt.Replanner``) clamps through.  Planner hints (``Hints`` /
+``resolve``) arrive with a later slice; until then ``as_plan`` refuses
+them with ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Optional, Tuple, Union
 
-from repro_torch.core.endpoints import Category, level_group_size
+from repro_torch.core.endpoints import (Category, category_for_level,
+                                        level_group_size)
+
+#: The scheduling resource types, in the budget loop's bump order: when
+#: a footprint budget forces more sharing, executables are shared first,
+#: channels second, slots last.  ``pages`` is resolved on its own dial.
+RESOURCES = ("execs", "channels", "slots")
+
+#: All four sharing axes, what the paged-aware live controller
+#: (``core.adapt.Replanner(paged=True)``) iterates.
+PAGED_RESOURCES = RESOURCES + ("pages",)
 
 
 def _check_level(name: str, level: int) -> int:
@@ -55,17 +68,79 @@ class SharingVector:
         _check_level("diagonal", level)
         return cls(slots=level, channels=level, execs=level)
 
+    @property
+    def is_diagonal(self) -> bool:
+        return self.slots == self.channels == self.execs
+
+    @property
+    def label(self) -> str:
+        """The compact ``s{slots}c{channels}e{execs}`` tag, with a ``p``
+        suffix only when the page pool is shared."""
+        base = f"s{self.slots}c{self.channels}e{self.execs}"
+        return base if self.pages == 1 else f"{base}p{self.pages}"
+
+    @property
+    def category(self) -> Optional[Category]:
+        """The canonical ``Category`` of a diagonal vector (None off the
+        diagonal)."""
+        return category_for_level(self.slots) if self.is_diagonal else None
+
     # ----- derived group structure --------------------------------------
     def group_size(self, resource: str, n: int) -> int:
         """Consumers per shared group for ``n`` units of ``resource``."""
         return level_group_size(getattr(self, resource), n)
 
     def exec_group_of(self, worker: int, n_workers: int) -> int:
-        """Which executable group worker ``worker`` keys into: level 4
-        puts the whole fleet in group 0.  In the port an engine records
-        its group id (``ContinuousEngine.exec_group``); its horizon
-        graphs stay its own whatever the group."""
+        """Which exec group worker ``worker`` keys into: level 4 puts the
+        whole fleet in group 0.  The engines of one group capture their
+        horizon graphs into one memory pool (``serve.engine.ExecGroup``)."""
         return worker // self.group_size("execs", n_workers)
+
+    # ----- footprint accounting -----------------------------------------
+    def footprint(self, n_workers: int = 1, n_slots: int = 4) -> dict:
+        """Fraction of the fully dedicated deployment's resources each
+        type holds live: slot admission groups over slots, dispatch
+        queues over workers, executable groups over workers (and page
+        groups over slots when the pool is shared)."""
+        n_workers = max(1, n_workers)
+        n_slots = max(1, n_slots)
+        slot_groups = math.ceil(n_slots / self.group_size("slots", n_slots))
+        f = {
+            "slots": slot_groups / n_slots,
+            "channels": math.ceil(
+                n_workers / self.group_size("channels", n_workers))
+            / n_workers,
+            "execs": math.ceil(
+                n_workers / self.group_size("execs", n_workers))
+            / n_workers,
+        }
+        if self.pages > 1:
+            f["pages"] = math.ceil(
+                n_slots / self.group_size("pages", n_slots)) / n_slots
+        return f
+
+    def footprint_score(self, n_workers: int = 1, n_slots: int = 4) -> float:
+        """The mean of the per-resource fractions (what a footprint
+        budget bounds)."""
+        f = self.footprint(n_workers, n_slots)
+        return sum(f.values()) / len(f)
+
+
+def fit_budget(vec: SharingVector, budget: Optional[float], *,
+               n_workers: int = 1, n_slots: int = 4) -> SharingVector:
+    """Raise sharing levels (execs, then channels, then slots) until the
+    vector's footprint fits ``budget`` or it is fully shared; the
+    ``pages`` axis is carried through untouched."""
+    if budget is None:
+        return vec
+    while vec.footprint_score(n_workers, n_slots) > budget:
+        for r in RESOURCES:           # execs -> channels -> slots
+            if getattr(vec, r) < 4:
+                vec = dataclasses.replace(vec, **{r: getattr(vec, r) + 1})
+                break
+        else:
+            break                     # fully shared: nothing left to give
+    return vec
 
 
 Buckets = Union[None, str, Tuple[int, ...]]
@@ -178,6 +253,20 @@ class EndpointPlan:
         return cls.from_category(category, **overrides)
 
     @property
+    def category(self) -> Optional[Category]:
+        """The remembered preset, else the canonical category of a
+        diagonal vector, else None."""
+        if self.preset is not None:
+            return Category(self.preset)
+        return self.vector.category
+
+    @property
+    def role_split(self) -> Optional[Tuple[int, int]]:
+        """The parsed ``(n_prefill, n_decode)`` split, or None when the
+        plan is co-located."""
+        return parse_roles(self.roles)
+
+    @property
     def paged(self) -> bool:
         """A shared page level or an explicit page size engages the paged
         KV-cache layout."""
@@ -191,6 +280,12 @@ class EndpointPlan:
 
     def exec_group_of(self, worker: int) -> int:
         return self.vector.exec_group_of(worker, self.n_workers)
+
+    def footprint(self) -> dict:
+        return self.vector.footprint(self.n_workers, self.n_slots)
+
+    def footprint_score(self) -> float:
+        return self.vector.footprint_score(self.n_workers, self.n_slots)
 
 
 #: The six paper categories as named presets: the diagonal of the plan
@@ -221,6 +316,6 @@ def as_plan(spec, **overrides) -> EndpointPlan:
 
 
 __all__ = [
-    "SharingVector", "EndpointPlan", "PRESETS", "as_plan", "Buckets",
-    "parse_roles",
+    "RESOURCES", "PAGED_RESOURCES", "SharingVector", "fit_budget",
+    "EndpointPlan", "PRESETS", "as_plan", "Buckets", "parse_roles",
 ]

@@ -30,21 +30,24 @@ counterpart here, the horizon's: ``HorizonGraphs`` captures the fused
 horizon as one ``torch.cuda.CUDAGraph`` per ``n_steps`` at first use, on
 the engine's static buffers, and replays it as one launch per horizon;
 ``compile_count()`` counts those graphs.  A graph binds the addresses of
-one engine's buffers, so unlike ``SharedSteps`` it is not shared between
-the engines of an exec group.  Admission (prefill and scatter, the
-reference's jitted ``admit_packed``) and the K=1 loop stay eager.  Cache
-scatters write in place, indexed by the slot assignment the host already
-knows.
+one engine's buffers, so what the engines of an exec group share is the
+memory the captures draw on: one ``ExecGroup`` per (config, ragged
+kernel, group id, device), the counterpart of ``SharedSteps``' key, owns
+one graph memory pool that every engine of the group captures into.
+Admission (prefill and scatter, the reference's jitted ``admit_packed``)
+and the K=1 loop stay eager.  Cache scatters write in place, indexed by
+the slot assignment the host already knows.
 
 The engine's other entry points keep those addresses too: a KV handoff
 (``prefill_only`` on one engine, a ``Request`` carrying the ``KVHandoff``
 on another, DESIGN.md §17) lands through the same in-place scatters;
 ``export_session`` copies a live slot out into a batch-1 contiguous cache
 and drains it in place, as ``evacuate`` drains every slot; ``regroup``
-re-keys the slot and page pools and records an exec group id.  Where the
-reference rebuilt the decode-state dict or the page table, the port
-writes the engine's tensors in place, so a graph captured before any of
-them reads the right values after.
+re-keys the slot and page pools and moves the engine's future captures
+to another exec group's pool.  Where the reference rebuilt the
+decode-state dict or the page table, the port writes the engine's
+tensors in place, so a graph captured before any of them reads the
+right values after.
 """
 
 from __future__ import annotations
@@ -228,6 +231,61 @@ def _set_launch_counts(counts: List[Dict[str, int]]) -> None:
         counter.update(saved)
 
 
+class ExecGroup:
+    """The engines of one exec group (the ``execs`` axis of a
+    ``SharingVector``): the port's counterpart of the reference's
+    ``SharedSteps``, keyed as the reference keys it, by (config,
+    ``use_ragged_kernel``, group id) and here the device.
+
+    A horizon graph binds one engine's buffers, so the group cannot
+    share the graphs themselves.  It shares the memory they run in: one
+    CUDA graph memory pool (``torch.cuda.graph_pool_handle()``, made at
+    the group's first capture) that every engine of the group captures
+    its horizon graphs into, so at exec level 4 a fleet holds one pool of
+    capture intermediates where level 1 holds one per engine.
+    ``captures`` counts the graphs the group's engines captured; the
+    fleet's compile telemetry counts each group once.
+
+    Sharing the pool is safe under one invariant, which the serving
+    stack keeps: the group's graphs replay one at a time, on one stream,
+    and never overlap.  Every engine replays on the current stream, and
+    every external ``step()`` ends in a host sync (the trace drain)
+    before the fleet steps another engine.  A replay's outputs never
+    live in the pool: ``HorizonGraphs.body`` copies the cache's ``idx``,
+    the state and the trace into buffers allocated outside any capture,
+    so only a capture's intermediates, dead once its replay ends, share
+    the pool's memory.  A pool lives as long as the graphs captured into
+    it, so an engine that moves to another group keeps its graphs
+    valid."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.captures = 0
+        self._pool = None
+
+    def pool(self):
+        """The group's graph memory pool (made at the first capture)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+
+#: every exec group of the process, by (config, use_ragged_kernel,
+#: group id, device), as the reference caches ``_shared_steps``
+_EXEC_GROUPS: Dict[tuple, ExecGroup] = {}
+
+
+def shared_exec_group(cfg: ArchConfig, use_ragged_kernel: bool,
+                      group: int, device: torch.device) -> ExecGroup:
+    """The process's ``ExecGroup`` for this key, made at first use."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (cfg, bool(use_ragged_kernel), int(group), str(device))
+    if key not in _EXEC_GROUPS:
+        _EXEC_GROUPS[key] = ExecGroup(key)
+    return _EXEC_GROUPS[key]
+
+
 class HorizonGraphs:
     """The fused decode horizon as executables: the port's counterpart of
     the reference's jitted ``SharedSteps.horizon``.
@@ -248,16 +306,13 @@ class HorizonGraphs:
     construction, when every slot is drained, so it writes nothing.
     Warm-up and capture leave the kernel launch counters as they were;
     each replay adds the launches its graph holds.  A failed warm-up or
-    capture raises.  The graphs share one private memory pool, freed with
-    them.  On the CPU nothing is captured and a call runs the body.
-
-    A graph binds the addresses of one engine's buffers, so the
-    reference's sharing of one executable set across the engines of an
-    exec group has no counterpart yet: what a group shares (one memory
-    pool, say) is the fleet slice's choice."""
+    capture raises.  Each graph is captured into the memory pool of the
+    engine's ``group`` at the time of the capture (an ``ExecGroup``,
+    whose invariant the caller keeps), and counted there.  On the CPU
+    nothing is captured and a call runs the body."""
 
     def __init__(self, model: Model, params, cache, state, *, horizon: int,
-                 max_len: int, use_ragged_kernel: bool):
+                 max_len: int, use_ragged_kernel: bool, group: ExecGroup):
         self.model = model
         self.params = params
         self.cache = cache
@@ -265,15 +320,15 @@ class HorizonGraphs:
         self.horizon = horizon
         self.max_len = max_len
         self.use_ragged_kernel = use_ragged_kernel
+        self.group = group
         b, dev = state["tok"].shape[0], state["tok"].device
         self.trace = {name: torch.zeros((horizon, b), dtype=dt, device=dev)
                       for name, dt in _TRACE}
         #: n_steps -> (graph, the launch counts one replay adds)
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph,
                                      List[Dict[str, int]]]] = {}
-        self._pool = self._stream = None
+        self._stream = None
         if dev.type == "cuda":
-            self._pool = torch.cuda.graph_pool_handle()
             self._stream = _capture_stream(dev)
             counts = _launch_counts()
             self._stream.wait_stream(torch.cuda.current_stream(dev))
@@ -305,12 +360,13 @@ class HorizonGraphs:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
+            with torch.cuda.graph(graph, pool=self.group.pool(),
                                   stream=self._stream):
                 self.body(n_steps)
         finally:
             if collecting:
                 gc.enable()
+        self.group.captures += 1
         held = [{name: n - before[name] for name, n in after.items()}
                 for after, before in zip(_launch_counts(), counts)]
         _set_launch_counts(counts)
@@ -463,8 +519,11 @@ class ContinuousEngine:
                       "host_syncs": 0, "regroups": 0}
         self.use_ragged_kernel = plan.use_ragged_kernel
         #: the exec group id this engine keys into (the plan's execs
-        #: axis); recorded only: its horizon graphs are its own
+        #: axis), and the group itself, whose graph memory pool this
+        #: engine's captures draw on
         self.exec_group = exec_group
+        self.group = shared_exec_group(cfg, self.use_ragged_kernel,
+                                       exec_group, self.device)
         # ----- paged KV cache (plan-gated; DESIGN.md §13) ----------------
         self.page_pool: Optional[PagePool] = None
         self.page_size = 0
@@ -804,13 +863,13 @@ class ContinuousEngine:
 
         Slot and page regroups are admission and budget policy only
         (``SlotPool.regroup``, ``PagePool.regroup``): live slots keep
-        decoding and every page mapping survives.  ``exec_group`` is
-        recorded, not swapped: the reference moves the engine onto
-        another group's shared executables, but a horizon graph binds
-        this engine's own buffers, so the engine keeps its graphs and
-        ``compile_count()`` does not move (what a group shares is the
-        fleet slice's design).  No path touches the cache or the decode
-        state, so the tokens do not change."""
+        decoding and every page mapping survives.  ``exec_group``
+        moves the engine to that group (``ExecGroup``): the reference
+        swaps the engine onto the group's shared executables; here its
+        future captures go to the group's graph memory pool, while the
+        graphs it has keep running from the pool they were captured in,
+        so ``compile_count()`` does not move.  No path touches the cache
+        or the decode state, so the tokens do not change."""
         changed = False
         if slot_level is not None and int(slot_level) != self.pool.level:
             self.pool.regroup(slot_level)
@@ -828,6 +887,11 @@ class ContinuousEngine:
                 changed = True
         if exec_group is not None and int(exec_group) != self.exec_group:
             self.exec_group = int(exec_group)
+            self.group = shared_exec_group(
+                self.cfg, self.use_ragged_kernel, self.exec_group,
+                self.device)
+            if self._horizons is not None:
+                self._horizons.group = self.group
             changed = True
         if changed:
             self.stats["regroups"] += 1
@@ -883,7 +947,7 @@ class ContinuousEngine:
             self._horizons = HorizonGraphs(
                 self.model, self.params, self._cache, self._dev_state,
                 horizon=self.decode_horizon, max_len=self.max_len,
-                use_ragged_kernel=self.use_ragged_kernel)
+                use_ragged_kernel=self.use_ragged_kernel, group=self.group)
         self._started = True
 
     @property

@@ -170,15 +170,18 @@ def test_generate_returns_outputs_in_input_order():
 
 
 def test_unported_executors_raise():
-    """The fleet, adaptive re-planning and the tuned-plan repository
-    raise NotImplementedError until their slices; faults on a
-    single-engine plan are the caller's error (ValueError), as in the
-    reference, and the wave executor serves."""
+    """Only the tuned-plan repository still raises NotImplementedError
+    (the planner slice); the fleet executor and adaptive re-planning
+    serve; faults on a single-engine plan are the caller's error
+    (ValueError), as in the reference, and the wave executor serves."""
     _, tcfg, _, tparams = _served()
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        tserve.connect(tcfg, params=tparams, n_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="adaptive slice"):
-        tserve.connect(tcfg, params=tparams, adaptive=True, device="cpu")
+    fleet = tserve.connect(tcfg, params=tparams, n_workers=2, device="cpu")
+    assert fleet.executor == "fleet" and fleet.engine is None
+    assert fleet.generate([np.arange(1, 5, dtype=np.int32)], 2)[0]
+    assert len(fleet.workers) == 2
+    adaptive = tserve.connect(tcfg, params=tparams, adaptive=True,
+                              device="cpu")
+    assert adaptive.executor == "continuous" and adaptive.plan.adaptive
     with pytest.raises(NotImplementedError, match="planner slice"):
         tserve.connect(tcfg, params=tparams, device="cpu",
                        plan_repository=object())

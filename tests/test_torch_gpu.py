@@ -954,3 +954,133 @@ def test_evacuate_then_reserve_keeps_the_graphs(cuda, arch, pages):
         torch.cuda.synchronize()
         assert all(eng._horizons.graphs[n] is g for n, g in graphs.items())
     assert runs[False] == runs[True]
+
+
+# ----- the fleet: engines of one exec group share one graph memory pool -----
+
+def _fleet_serve(arch, device, levels, n_workers, **kw):
+    """The first burst of the canonical bursty trace through a smoke
+    fleet at fp32 (4 slots a worker, max_len 64, K 4); -> (tokens,
+    client)."""
+    from repro_torch.core.plan import SharingVector
+    from repro_torch.serve import connect
+    from repro_torch.serve.fabric import canonical_bursty_trace
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    client = connect(cfg, SharingVector(*levels), params=params,
+                     device=device, n_workers=n_workers, n_slots=4,
+                     max_len=64, decode_horizon=4, **kw)
+    for a in canonical_bursty_trace()[:24]:
+        rng = np.random.default_rng(a.rid)
+        client.submit(rng.integers(1, cfg.vocab, size=a.prompt_len)
+                      .astype(np.int32), max_new_tokens=a.max_new_tokens,
+                      at_ns=a.t_ns, session=a.session)
+    out = client.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, client
+
+
+FLEET_CASES = [
+    pytest.param("qwen2-0.5b", (4, 4, 4, 1), 4, {}, id="qwen2-diag4"),
+    pytest.param("qwen2-0.5b", (1, 1, 1, 4), 4, dict(page_size=16),
+                 id="qwen2-diag1-pages4"),
+    pytest.param("qwen2-0.5b", (2, 2, 2, 1), 4,
+                 dict(roles="2P+2D", faults="crash@0.6ms:w2"),
+                 id="qwen2-2P+2D-crash"),
+    pytest.param("qwen2-0.5b", (2, 2, 2, 1), 4,
+                 dict(migrations=[(150_000.0, 1, 3)], adaptive=True,
+                      adapt_window_ns=100_000.0),
+                 id="qwen2-migration-adaptive"),
+    pytest.param("recurrentgemma-2b", (2, 2, 2, 1), 2, {},
+                 id="recurrentgemma-colocated"),
+    pytest.param("recurrentgemma-2b", (2, 2, 2, 1), 2, dict(roles="1P+1D"),
+                 id="recurrentgemma-1P+1D"),
+]
+
+
+@pytest.mark.parametrize("arch,levels,n_workers,kw", FLEET_CASES)
+def test_fleet_on_card_matches_cpu(cuda, arch, levels, n_workers, kw):
+    """A fleet on the card (kernels, every worker's horizons replayed as
+    graphs captured into its exec group's pool) serves the CPU fleet's
+    tokens at fp32, with the same virtual schedule; every engine runs on
+    the card over one weight copy, and the engines of one exec group
+    report one probe key."""
+    from repro_torch.models.params import tree_leaves
+    if "faults" in kw:
+        from repro_torch.serve.recovery import RecoveryPolicy
+        kw = dict(kw, recovery=RecoveryPolicy(deadline_ns=600_000.0))
+    cpu, cpu_client = _fleet_serve(arch, "cpu", levels, n_workers, **kw)
+    card, client = _fleet_serve(arch, "cuda", levels, n_workers, **kw)
+    assert card == cpu and len(card) == 24
+    rep, cpu_rep = client.report, cpu_client.report
+    assert [(c.rid, c.worker, c.t_done_ns) for c in rep.completions] == \
+        [(c.rid, c.worker, c.t_done_ns) for c in cpu_rep.completions]
+    assert (rep.handoffs, rep.migrations, rep.detections, rep.recovered,
+            rep.failed) == (cpu_rep.handoffs, cpu_rep.migrations,
+                            cpu_rep.detections, cpu_rep.recovered,
+                            cpu_rep.failed)
+    engines = [w.engine for w in client.workers]
+    assert all(e.device.type == "cuda" for e in engines)
+    first = tree_leaves(engines[0].params)
+    assert all(a is b for e in engines[1:]
+               for a, b in zip(tree_leaves(e.params), first))
+    assert all(0 <= e.compile_count() <= e.decode_horizon for e in engines)
+    assert sum(e.compile_count() for e in engines) >= 1
+    keys = {w.compile_probe()[0] for w in client.workers}
+    assert len(keys) == len({id(e.group) for e in engines})
+    assert rep.metrics.total("exec.jit_compiles") == sum(
+        g.captures for g in {id(e.group): e.group
+                             for e in engines}.values())
+
+
+def test_shared_pool_interleaved_replays_equal_each_engines_eager_body(
+        cuda):
+    """Two engines of one exec group capture their horizon graphs into
+    the group's one memory pool and step in turns (one horizon of A, one
+    of B, ...), each step ending in its host sync, as the fleet steps
+    them.  Each serves, on every token, what its own eager body serves on
+    the same requests; no graph's replay disturbs the other engine's."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(5)
+
+    def requests(rid0):
+        return [Request(rid=rid0 + i, prompt=rng.integers(
+            1, 128, size=int(n)).astype(np.int32),
+            max_new_tokens=int(m))
+            for i, (n, m) in enumerate(zip(rng.integers(3, 30, 9),
+                                           rng.integers(1, 30, 9)))]
+
+    sets = {"a": requests(0), "b": requests(100)}
+    eager = {}
+    for name, reqs in sets.items():
+        eng = _horizon_engine("qwen2-0.5b", False, horizon=4)
+        eng.start()
+        eng._run_horizon = eng._horizons.body
+        for r in reqs:
+            eng.submit(Request(rid=r.rid, prompt=r.prompt,
+                               max_new_tokens=r.max_new_tokens))
+        eager[name] = _outputs(eng.run())
+    a = _horizon_engine("qwen2-0.5b", False, horizon=4)
+    b = _horizon_engine("qwen2-0.5b", False, horizon=4)
+    assert a.group is b.group
+    engines = {"a": a, "b": b}
+    for name, eng in engines.items():
+        eng.start()
+        for r in sets[name]:
+            eng.submit(Request(rid=r.rid, prompt=r.prompt,
+                               max_new_tokens=r.max_new_tokens))
+    pool = None
+    while any(e.has_work for e in engines.values()):
+        for eng in engines.values():
+            if eng.has_work:
+                eng.admit_waiting()
+                eng.step()
+                if eng.group._pool is not None:
+                    pool = eng.group._pool
+    torch.cuda.synchronize()
+    assert pool is not None and a.group._pool == pool
+    assert a.compile_count() >= 1 and b.compile_count() >= 1
+    assert a.group.captures >= a.compile_count() + b.compile_count()
+    assert _outputs(a.done) == eager["a"]
+    assert _outputs(b.done) == eager["b"]

@@ -19,7 +19,12 @@ and hold it to what capture depends on and to the reference:
 
 The engine's other writers are held to the same addresses: KV handoff
 admission, a live ``regroup``, ``export_session`` and ``evacuate``, after
-which the engine serves the reference's tokens again.
+which the engine serves the reference's tokens again.  So are the fleet
+router's writers (``EngineWorker.admit``, crash retries that re-prefill
+prompt + emitted prefix, KV handoff landings, ``kill`` -> ``evacuate``,
+``export_sessions`` for a scheduled migration, ``regroup`` from the
+adaptive controller), checked on every engine of a 4-worker fleet after
+each call, co-located and 2P+2D.
 
 Graph capture and replay themselves run on the card only
 (``test_torch_gpu.py``, ``chip_smoke.py``).
@@ -34,7 +39,9 @@ from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models.params import tree_leaves
 from repro_torch.serve.engine import ContinuousEngine as TEngine
 from repro_torch.serve.engine import Request as TRequest
+from repro_torch.serve.fabric import EngineWorker
 from tests import test_torch_engine as qwen2
+from tests import test_torch_fleet as fleet
 from tests import test_torch_recurrent_engine as rgemma
 
 
@@ -164,3 +171,81 @@ def test_handoff_export_evacuate_and_regroup_keep_the_buffers(arch, pages):
     assert _addresses(eng) == fixed
     assert again == _reference(arch, 4, pages)[0][0]
     assert eng.compile_count() == 0 and eng.stats["regroups"] == 1
+
+
+#: the router's writers into an engine, as ``EngineWorker`` methods
+_FLEET_WRITERS = ("admit", "admit_retry", "admit_prefill",
+                  "admit_retry_prefill", "admit_handoff", "export_sessions",
+                  "kill", "regroup", "step")
+
+#: co-located: worker 0 dies holding live sessions (they re-prefill
+#: prompt + prefix on a survivor) and worker 1's sessions migrate to
+#: worker 3; adaptive: the controller regroups every engine; 2P+2D:
+#: decode worker 2 dies, its sessions re-prefill on a prefill worker and
+#: land again as KV handoffs.  (Faults and the adaptive controller are
+#: not combined: the reference's event loop does not end with both, its
+#: probe and window chains re-arming each other.)
+_FLEET_RUNS = {
+    "colocated": dict(faults="crash@0.6ms:w0",
+                      recovery=(("deadline_ns", 600_000.0),),
+                      migrations=((150_000.0, 1, 3),)),
+    "adaptive": dict(adaptive=True, adapt_window_ns=100_000.0),
+    "2P+2D": dict(roles="2P+2D", faults="crash@0.7ms:w2",
+                  recovery=(("deadline_ns", 600_000.0),)),
+}
+
+
+@pytest.mark.parametrize("run", sorted(_FLEET_RUNS))
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-2b"])
+def test_fleet_writers_keep_every_engines_buffers(arch, run, monkeypatch):
+    """A fleet of 4 engines at K 4 on the first burst of the canonical
+    trace: after every call the router makes into an engine, every
+    engine's static buffers sit where they were at ``start()``; the
+    tokens equal the reference's fault-free co-located fleet."""
+    fixed = {}
+    calls = {}
+
+    def checked(name):
+        method = getattr(EngineWorker, name)
+
+        def call(self, *args, **kw):
+            if not fixed:
+                for w in self_fleet:
+                    fixed[w.wid] = _addresses(w.engine)
+            result = method(self, *args, **kw)
+            calls[name] = calls.get(name, 0) + 1
+            for w in self_fleet:
+                assert _addresses(w.engine) == fixed[w.wid], \
+                    f"{name} on worker {self.wid} moved worker {w.wid}'s"
+            return result
+        return call
+
+    self_fleet = []
+    build = fleet.tserve.ServeClient._build_workers
+
+    def build_and_keep(client):
+        build(client)
+        self_fleet.extend(client.workers)
+
+    monkeypatch.setattr(fleet.tserve.ServeClient, "_build_workers",
+                        build_and_keep)
+    for name in _FLEET_WRITERS:
+        monkeypatch.setattr(EngineWorker, name, checked(name))
+    got, client = fleet.serve("port", (2, 2, 2, 1), 4, arch=arch,
+                              **_FLEET_RUNS[run])
+    expect, _ = fleet.reference((2, 2, 2, 1), 4, arch=arch)
+    assert got == expect
+    rep = client.report
+    if run == "adaptive":
+        assert rep.transitions and calls.get("regroup", 0) > 0
+    else:
+        assert rep.detections == 1 and rep.recovered and not rep.failed
+        assert calls.get("kill") == 1
+    if run == "colocated":
+        assert rep.migrations == 1 and calls.get("export_sessions") == 1
+        assert calls.get("admit_retry", 0) > 0
+        assert calls.get("admit_handoff", 0) > 0
+    if run == "2P+2D":
+        assert calls.get("admit_handoff", 0) > 24
+        assert calls.get("admit_retry_prefill", 0) > 0
+    assert all(w.engine.compile_count() == 0 for w in self_fleet)

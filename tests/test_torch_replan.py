@@ -9,12 +9,12 @@ the two repairs of ``connect``'s validation.
   the group id and keeps the engine's horizon graphs.
 * ``replan`` between runs serves the reference's tokens and transitions;
   it refuses structural fields and layout flips (``ValueError``), planner
-  hints (``NotImplementedError``, the planner slice), adaptive plans
-  (``NotImplementedError``, the adaptive slice), and the wave executor
-  (``ValueError``).
+  hints (``NotImplementedError``, the planner slice) and the wave
+  executor (``ValueError``); ``replan(None, adaptive=True)`` turns the
+  controller on for the next run, as in the reference.
 * An unknown ``placement`` and faults, recovery or migrations on a
   single-engine plan raise ``ValueError``, as in the reference; a fleet
-  plan raises ``NotImplementedError`` until the fleet slice.
+  plan accepts them.
 """
 
 import dataclasses
@@ -187,12 +187,18 @@ def test_replan_refuses_layout_flips_and_unknown_placement():
 
 
 def test_replan_hints_and_adaptive_name_their_slices():
-    _, client = _clients()
+    """Hints still name the planner slice; an adaptive replan lands on
+    the plan, and the next run's controller starts from it, as in the
+    reference."""
+    j_client, client = _clients()
     with pytest.raises(NotImplementedError, match="planner slice"):
         client.replan(Hints(latency_target_ms=10.0))
-    with pytest.raises(NotImplementedError, match="adaptive slice"):
-        client.replan(None, adaptive=True)
-    assert client.transitions == [] and client.engine.stats["regroups"] == 0
+    for c in (j_client, client):
+        plan = c.replan(None, adaptive=True, adapt_window_ns=60_000.0)
+        assert plan.adaptive and c.plan.adaptive
+        assert c.transitions == [] and c.engine.stats["regroups"] == 0
+    prompts = [p for p, _, _ in qwen2._specs()]
+    assert client.generate(prompts, 6) == j_client.generate(prompts, 6)
 
 
 def test_wave_executor_refuses_replan():
@@ -230,7 +236,10 @@ def test_off_fleet_faults_raise_value_error(kw, executor):
     with pytest.raises(ValueError, match="fleet"):
         tserve.connect(tcfg, params=tparams, executor=executor,
                        device="cpu", **kw)
-    # on a fleet plan the port still refuses: the fleet is not ported
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        tserve.connect(tcfg, params=tparams, n_workers=2, device="cpu",
-                       **kw)
+    # on a fleet plan both packages accept them
+    for client in (jserve.connect(jcfg, params=jparams, n_workers=2, **kw),
+                   tserve.connect(tcfg, params=tparams, n_workers=2,
+                                  device="cpu", **kw)):
+        assert client.executor == "fleet"
+        assert (client.faults, client.recovery, client.migrations) == \
+            (kw.get("faults"), kw.get("recovery"), kw.get("migrations"))
