@@ -89,7 +89,8 @@ Phases (any failure exits non-zero, without the final result line):
    ``evacuate`` with 8 live and 8 queued requests (prefixes, pages,
    graphs), then 8 fresh requests equal to a fresh engine's with no new
    capture; ``connect(obs=enabled_obs())`` (the trace validates, one
-   span per request, the engine counters equal ``stats``, one graph);
+   span per request, the engine counters equal ``stats`` and
+   ``compile_count()``, one graph);
    ``replan`` between two runs (one regroup, the graphs kept, one
    transition); times export and handoff admission per session against
    the copy bound (garbage collected before, none during);
@@ -120,7 +121,25 @@ Phases (any failure exits non-zero, without the final result line):
    replayed in a CUDA graph, without the host's dispatch), its bound, the
    plain version's time and, for attention,
    ``scaled_dot_product_attention``'s (a yardstick the port never calls;
-   no PyTorch call computes a linear recurrence), as one JSON line.
+   no PyTorch call computes a linear recurrence), as one JSON line;
+13. the planner at full width: qwen2-0.5b on phase 4's weights, 8 workers
+   of 4 slots (the committed plan repository's fleet), max_len 1024,
+   horizon 8, phase 11's 32 requests.  At fp32 each run's tokens must
+   equal a single engine's on the same prompts, every one, with its
+   launch gates and at most K graphs an engine:
+   ``Hints(latency_target_ms=80, burstiness=0.9)`` resolved
+   analytically, an explicit ``EndpointPlan`` of the vector it resolves
+   to, ``Hints()`` through a copy of
+   ``benchmarks/baselines/plan_repo.sqlite`` (the vector must be one of
+   its frontier vectors), and that with ``adaptive=True`` (its
+   transitions printed, and how many were repository jumps).  Then the
+   smoke config at fp32, 4 workers of 4 slots, ``Hints(burstiness=0.9)``
+   on a repository of the port's tuner, adaptive: the card's tokens and
+   ``FleetReport`` (every field, ``exec.jit_compiles`` and the
+   transitions included) must equal the CPU's.  In bf16 the tuned plan
+   against the analytic one: tok/s over host time (a first and a second
+   run), graphs per engine, specializations per exec group, graph pool
+   bytes and ``max_memory_reserved``.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
@@ -771,7 +790,7 @@ def serve_full_width(card: str):
         log(f"serve {layout}: {len(outs)} requests, "
             f"{sum(map(len, outs))} tokens, {steps} decode steps in "
             f"{eng.stats['decode_calls']} horizons "
-            f"({eng.compile_count()} graphs), {wall:.2f}s wall; "
+            f"({eng.graph_count()} graphs), {wall:.2f}s wall; "
             f"launches {counts} (expected {expect})")
         log(f"  decode {tok / dec_s:.1f} tok/s ({tok} tokens in "
             f"{dec_s:.3f}s, batch {N_SLOTS}, horizon {HORIZON}); "
@@ -872,7 +891,7 @@ def serve_long_prompts(cfg, params, card: str):
         log(f"long prompts {name} (buckets {list(eng.prefill_buckets)}): "
             f"{len(outs)} requests, {sum(map(len, outs))} tokens, "
             f"{prefills} prefills, {steps} decode steps "
-            f"({eng.compile_count()} graphs); launches {counts} "
+            f"({eng.graph_count()} graphs); launches {counts} "
             f"(expected {expect})")
         log(f"  wall {wall:.2f}s, decode {tok / dec_s:.1f} tok/s ({tok} "
             f"tokens in {dec_s:.3f}s); max_memory_allocated "
@@ -964,7 +983,7 @@ def graph_vs_eager(prompts, cfg, params, card: str) -> dict:
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             expect = _expected_launches(c, eng, sum(horizons))
             tok = eng.stats["busy_slot_steps"]
-            graphs = eng.compile_count()
+            graphs = eng.graph_count()
             rates[name][mode] = tok / dec_s
             log(f"{name} {mode}: decode {tok / dec_s:.1f} tok/s ({tok} "
                 f"tokens in {dec_s:.3f}s, {len(horizons)} horizons, "
@@ -994,9 +1013,9 @@ def graph_vs_eager(prompts, cfg, params, card: str) -> dict:
                 rates[name]["graph, no capture"] = tok / seconds[0]
                 log(f"  a second run on the same engine: decode "
                     f"{tok / seconds[0]:.1f} tok/s ({tok} tokens in "
-                    f"{seconds[0]:.3f}s), {eng.compile_count()} graphs, "
+                    f"{seconds[0]:.3f}s), {eng.graph_count()} graphs, "
                     f"tokens equal to the first run's: {again == outs[mode]}")
-                if eng.compile_count() != graphs or again != outs[mode]:
+                if eng.graph_count() != graphs or again != outs[mode]:
                     bad.append(f"{name}: the second run captured or served "
                                f"other tokens")
             del eng
@@ -1096,7 +1115,7 @@ def serve_recurrentgemma(card: str):
         f"{list(eng.prefill_buckets) or 'off'}, paged {eng.paged}): "
         f"{len(outs)} requests, {sum(map(len, outs))} tokens, {prefills} "
         f"prefills, {steps} decode steps in {eng.stats['decode_calls']} "
-        f"horizons ({eng.compile_count()} graphs); launches {counts} "
+        f"horizons ({eng.graph_count()} graphs); launches {counts} "
         f"(expected {expect}; decode-attention "
         f"kernels {counts['ragged_decode'] + counts['paged_decode']})")
     log(f"  decode {tok / dec_s:.1f} tok/s ({tok} tokens in {dec_s:.3f}s, "
@@ -1279,7 +1298,7 @@ def _wave_vs_continuous(cfg, weights, card, bad) -> dict:
     tok = eng.stats["busy_slot_steps"]
     same, total = _agree(wave, {r: o for r, o in zip(rids, outs)})
     log(f"  continuous on the same prompts: decode {tok / cont_s:.1f} "
-        f"tok/s ({eng.compile_count()} graphs, capture included); wave "
+        f"tok/s ({eng.graph_count()} graphs, capture included); wave "
         f"vs continuous {same}/{total} tokens agree ({same / total:.4f}, "
         f"bf16: other GEMM shapes, not gated); on {card}")
     return {"wave_tok_s": n_tok / dec_s, "continuous_tok_s": tok / cont_s,
@@ -1322,7 +1341,7 @@ def _disaggregation(cfg, weights, prompts, card, bad) -> dict:
             f"session); handoff admission {admit_ms[layout]:.4f} ms a "
             f"session; decode launches {counts[name]} in "
             f"{decode.stats['decode_steps']} steps, flash "
-            f"{counts['flash_attention']} ({decode.compile_count()} "
+            f"{counts['flash_attention']} ({decode.graph_count()} "
             f"graphs); vs co-located {same}/{total} tokens agree; on {card}")
         if got != colocated:
             bad.append(f"disaggregated {layout} != co-located")
@@ -1363,8 +1382,8 @@ def _migration(cfg, weights, prompts, card, bad) -> dict:
             f"{a.stats['decode_steps']} steps ({export_ms[pair]:.4f} ms a "
             f"session, {a.stats['host_syncs']} host syncs on A); vs "
             f"uninterrupted {same}/{total} tokens agree; A's pages all "
-            f"free {freed}; graphs A {a.compile_count()}, B "
-            f"{b.compile_count()}; on {card}")
+            f"free {freed}; graphs A {a.graph_count()}, B "
+            f"{b.graph_count()}; on {card}")
         if got != whole[src] or len(handoffs) != len(prompts) or not freed:
             bad.append(f"migration {pair}: tokens, sessions or pages")
     return {"export_ms": export_ms}
@@ -1380,7 +1399,7 @@ def _evacuation(cfg, weights, prompts, paged_outs, card, bad) -> None:
     eng.admit_waiting()
     eng.step()
     eng.step()
-    graphs = eng.compile_count()
+    graphs = eng.graph_count()
     live, queued = eng.evacuate()
     prefix_ok = all(r.output == paged_outs[r.rid][:len(r.output)]
                     and len(r.output) == 2 * HORIZON for r in live)
@@ -1402,8 +1421,8 @@ def _evacuation(cfg, weights, prompts, paged_outs, card, bad) -> None:
     same, total = _agree(again, expect)
     log(f"  re-served {len(again)} fresh requests: {same}/{total} tokens "
         f"equal a fresh engine's; graphs {graphs} -> "
-        f"{eng.compile_count()}; on {card}")
-    if again != expect or eng.compile_count() != graphs:
+        f"{eng.graph_count()}; on {card}")
+    if again != expect or eng.graph_count() != graphs:
         bad.append("evacuation: the re-served tokens or a new capture")
 
 
@@ -1430,9 +1449,10 @@ def _obs_run(cfg, weights, prompts, card, bad) -> None:
         f"spans for {len(prompts)} requests, validate_trace problems "
         f"{problems}; {len(reg.names())} metric series, engine counters "
         f"unequal to stats {wrong}; engine.jit_compiles {compiles}, "
-        f"compile_count() {eng.compile_count()}; on {card}")
+        f"compile_count() {eng.compile_count()}, graphs "
+        f"{eng.graph_count()}; on {card}")
     if problems or spans != len(prompts) or wrong or \
-            not compiles == eng.compile_count() == 1:
+            compiles != eng.compile_count() or eng.graph_count() != 1:
         bad.append("obs: trace, spans or counters")
 
 
@@ -1459,7 +1479,7 @@ def _regroup(cfg, weights, prompts, card, bad) -> None:
                 f"transitions {client.transitions}, slot level "
                 f"{eng.pool.level}, page level {eng.page_pool.level}, "
                 f"graphs kept {eng._horizons.graphs == graphs} "
-                f"({eng.compile_count()})")
+                f"({eng.graph_count()})")
             if not ok:
                 bad.append("regroup: stats, transitions, levels or graphs")
     same, total = _agree(dict(enumerate(seconds[True])),
@@ -1668,7 +1688,7 @@ def _fleet_fp32(cfg32, w32, prompts_at, device, card, bad) -> dict:
         same = sum(x == y for a, b in zip(outs, single[paged])
                    for x, y in zip(a or [], b))
         total = sum(map(len, single[paged]))
-        graphs = [w.engine.compile_count() for w in client.workers]
+        graphs = [w.engine.graph_count() for w in client.workers]
         log(f"fleet fp32 {name}: {rep.n_completed}/{len(prompts)} requests, "
             f"vector {client.plan.vector.label}, {same}/{total} tokens "
             f"equal the single engine's ({'paged' if paged else 'contiguous'}"
@@ -1727,7 +1747,7 @@ def _fleet_bf16(cfg, weights, prompts_at, card, bad) -> dict:
                 outs, _, _, wall, step_s = _fleet_run(client, prompts_at)
             groups = {id(w.engine.group): w.engine.group
                       for w in client.workers}
-            graphs = [w.engine.compile_count() for w in client.workers]
+            graphs = [w.engine.graph_count() for w in client.workers]
             tok = sum(map(len, outs))
             if max(graphs) > HORIZON or (attempt and clock.count):
                 bad.append(f"fleet bf16 execs={execs}: graphs per engine "
@@ -1748,7 +1768,8 @@ def _fleet_bf16(cfg, weights, prompts_at, card, bad) -> dict:
                     f"captured in {clock.seconds:.2f}s (graphs per engine "
                     f"{graphs}; exec.jit_compiles "
                     f"{client.report.metrics.total('exec.jit_compiles'):.0f}"
-                    f", every capture of the groups in this process); "
+                    f", the specializations of the groups in this "
+                    f"process); "
                     f"max_memory_allocated {peak:.2f} GiB, "
                     f"max_memory_reserved {reserved:.2f} GiB ({live:.2f} "
                     f"GiB live before); graph pools "
@@ -2141,6 +2162,287 @@ def time_flash(launches: dict):
                 cases=cases)
 
 
+# ----- phase 13 --------------------------------------------------------------
+
+#: the planner phase's fleet: the committed plan repository's key
+#: (canonical_bursty, sim, 8 workers, 4 slots)
+PLAN_WORKERS, PLAN_SLOTS = 8, 4
+COMMITTED_REPO = ROOT / "benchmarks" / "baselines" / "plan_repo.sqlite"
+#: the hints resolved analytically (no repository)
+ANALYTIC_HINTS = {"latency_target_ms": 80.0, "burstiness": 0.9}
+
+
+def _planned(cfg, weights, device, spec, **kw):
+    """A fleet client of PLAN_WORKERS workers of PLAN_SLOTS slots
+    (max_len 1024, horizon 8) connected with ``spec``: ``Hints``, an
+    ``EndpointPlan`` or a vector."""
+    from repro_torch.serve import connect
+    return connect(cfg, spec, params=weights, device=device,
+                   n_workers=PLAN_WORKERS, n_slots=PLAN_SLOTS,
+                   max_len=SMAX, decode_horizon=HORIZON,
+                   use_ragged_kernel=True, **kw)
+
+
+def _repository_copy(directory):
+    """A copy of the committed plan repository in ``directory``, opened
+    (opening a repository writes to it: never the committed file)."""
+    import shutil
+    from repro_torch.tune import PlanRepository
+    path = Path(directory) / "plan_repo.sqlite"
+    shutil.copyfile(COMMITTED_REPO, path)
+    return PlanRepository(str(path))
+
+
+def _jumps(start, transitions) -> int:
+    """Transitions that move more than one level or one axis at once:
+    the adaptive controller's jumps to a repository's frontier plans."""
+    path = [dataclasses.astuple(start)] + [dataclasses.astuple(v)
+                                           for _, v in transitions]
+    return sum(sum(abs(a - b) for a, b in zip(u, v)) > 1
+               for u, v in zip(path, path[1:]))
+
+
+def _planner_fp32(cfg32, w32, prompts_at, directory, card, bad):
+    """The fp32 runs, each gated on tokens equal to a single continuous
+    engine's on the same prompts, on its launch counts and on at most K
+    graphs an engine; each fleet's engines start from cleared exec
+    groups, so its specializations are its own.  -> (the analytic
+    vector, the tuned one)."""
+    from repro_torch.core.plan import EndpointPlan, Hints, resolve
+    from repro_torch.serve import connect
+    from repro_torch.serve.engine import clear_exec_groups
+    prompts = [p for p, _ in prompts_at]
+    single = {}
+    analytic = resolve(Hints(**ANALYTIC_HINTS), n_workers=PLAN_WORKERS,
+                       n_slots=PLAN_SLOTS)
+    repo = _repository_copy(directory)
+    stored = repo.frontier_vectors(n_workers=PLAN_WORKERS,
+                                   n_slots=PLAN_SLOTS)
+    runs = (
+        ("hints, analytic", Hints(**ANALYTIC_HINTS), {}),
+        ("explicit plan of that vector", EndpointPlan(vector=analytic), {}),
+        ("hints, repository", Hints(), {"plan_repository": repo}),
+        ("hints, repository, adaptive", Hints(),
+         {"plan_repository": repo, "adaptive": True,
+          "adapt_window_ns": 1e5}))
+    tuned = None
+    for name, spec, kw in runs:
+        client = _planned(cfg32, w32, "cuda", spec, **kw)
+        start = client.plan.vector
+        paged = client.plan.paged
+        if paged not in single:
+            single[paged] = connect(cfg32, _plan(paged), params=w32,
+                                    device="cuda").generate(prompts,
+                                                            MAX_NEW)
+        clear_exec_groups()           # the workers are built at run()
+        outs, counts, expect, wall, _ = _fleet_run(client, prompts_at)
+        rep = client.report
+        same = sum(x == y for a, b in zip(outs, single[paged])
+                   for x, y in zip(a or [], b))
+        total = sum(map(len, single[paged]))
+        graphs = [w.engine.graph_count() for w in client.workers]
+        groups = {id(w.engine.group): w.engine.group
+                  for w in client.workers}
+        path = " -> ".join(f"{v.label}@{t / 1e6:.2f}ms"
+                           for t, v in rep.transitions) or "none"
+        log(f"planner fp32 {name}: vector {start.label} "
+            f"({'paged' if paged else 'contiguous'}), "
+            f"{rep.n_completed}/{len(prompts)} requests, {same}/{total} "
+            f"tokens equal the single engine's; {wall:.2f}s host; graphs "
+            f"per engine {graphs}, specializations per exec group "
+            f"{[g.compile_count() for g in groups.values()]}; windows "
+            f"{rep.n_windows}, transitions {len(rep.transitions)} ({path}), "
+            f"{_jumps(start, rep.transitions)} of them repository jumps; "
+            f"launches {counts} (expected {expect}); on {card}")
+        used = ["flash_attention",
+                "paged_decode" if paged else "ragged_decode"]
+        if outs != single[paged]:
+            bad.append(f"planner {name}: tokens differ from the single "
+                       f"engine")
+        if counts != expect or not all(counts[k] > 0 for k in used):
+            bad.append(f"planner {name}: launches {counts} != {expect}")
+        if max(graphs) > HORIZON:
+            bad.append(f"planner {name}: an engine captured {max(graphs)} "
+                       f"graphs, more than K = {HORIZON}")
+        checks = {
+            "hints, analytic": start == analytic,
+            "explicit plan of that vector": start == analytic,
+            "hints, repository": start in stored,
+            "hints, repository, adaptive": (start in stored
+                                            and rep.n_windows > 0)}
+        if not checks[name]:
+            bad.append(f"planner {name}: vector {start.label} (analytic "
+                       f"{analytic.label}, stored "
+                       f"{[v.label for v in stored]})")
+        if name == "hints, repository":
+            tuned = start
+    repo.close()
+    return analytic, tuned
+
+
+def _planner_smoke_card_vs_cpu(directory, card, bad) -> None:
+    """The smoke config at fp32, 4 workers of 4 slots (max_len 64,
+    horizon 8), connected with ``Hints(burstiness=0.9)``, a repository
+    of the port's tuner for that fleet (``tiny``, ``grid``, 20 evals,
+    seed 0) and ``adaptive=True``, on the first burst of the canonical
+    bursty trace; the card's tokens and ``FleetReport`` (every field, the
+    transitions and the compile series included) must equal the CPU's.
+    Each run starts from cleared exec groups."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.plan import Hints
+    from repro_torch.models import Model
+    from repro_torch.serve import connect
+    from repro_torch.serve.engine import clear_exec_groups
+    from repro_torch.serve.fabric import canonical_bursty_trace
+    from repro_torch.tune import PlanRepository, space_by_name, tune
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    arrivals = canonical_bursty_trace()[:24]
+    front = tune(space_by_name("tiny"), driver="grid", budget_evals=20,
+                 seed=0).front
+    seen = {}
+    for device in ("cpu", "cuda"):
+        clear_exec_groups()
+        repo = PlanRepository(str(Path(directory) / f"{device}.sqlite"),
+                              fresh=True)
+        repo.store_front(front, traffic="canonical_bursty")
+        client = connect(cfg, Hints(burstiness=0.9), params=params,
+                         device=device, plan_repository=repo,
+                         adaptive=True, adapt_window_ns=1e5, n_workers=4,
+                         n_slots=4, max_len=64, decode_horizon=8)
+        start = client.plan.vector
+        for a in arrivals:
+            prompt = np.random.default_rng(a.rid).integers(
+                1, cfg.vocab, size=a.prompt_len).astype(np.int32)
+            client.submit(prompt, max_new_tokens=a.max_new_tokens,
+                          at_ns=a.t_ns, session=a.session)
+        reset_counts()
+        out = client.run()
+        counts = read_counts()
+        rep = client.report
+        fields = {}
+        for f in dataclasses.fields(rep):
+            v = getattr(rep, f.name)
+            if v is None:
+                pass
+            elif f.name == "metrics":
+                v = json.dumps(v.to_json(), sort_keys=True)
+            elif f.name == "category":
+                v = v.value
+            elif f.name == "vector":
+                v = dataclasses.astuple(v)
+            elif f.name == "completions":
+                v = [dataclasses.astuple(c) for c in v]
+            elif f.name == "transitions":
+                v = [(t, dataclasses.astuple(vec)) for t, vec in v]
+            fields[f.name] = v
+        seen[device] = (out, fields, counts, start, rep)
+        repo.close()
+    cpu, gpu = seen["cpu"], seen["cuda"]
+    differ = sorted(k for k in cpu[1] if cpu[1][k] != gpu[1][k])
+    rep = gpu[4]
+    log(f"planner smoke fp32, card vs CPU: vector {gpu[3].label}, "
+        f"{sum(map(len, gpu[0].values()))} tokens, equal "
+        f"{gpu[0] == cpu[0]}; FleetReport fields that differ {differ}; "
+        f"exec.jit_compiles {rep.metrics.total('exec.jit_compiles'):.0f} "
+        f"(CPU {cpu[4].metrics.total('exec.jit_compiles'):.0f}); "
+        f"{len(rep.transitions)} transitions, "
+        f"{_jumps(gpu[3], rep.transitions)} repository jumps; launches "
+        f"{gpu[2]} (CPU {cpu[2]}); on {card}")
+    if gpu[0] != cpu[0] or differ or sum(cpu[2].values()) \
+            or not gpu[2]["ragged_decode"] or not rep.transitions:
+        bad.append("planner smoke: the card's tokens or report differ from "
+                   "the CPU's, or the kernels did not run")
+
+
+def _planner_bf16(cfg, weights, prompts_at, plans, card, bad) -> dict:
+    """bf16, the tuned plan against the analytic one: tok/s over host
+    time (first run with captures, then a second), graphs per engine,
+    specializations per exec group (from cleared exec groups), graph pool
+    bytes and ``max_memory_reserved``."""
+    import gc
+    import torch
+    from repro_torch.core.plan import EndpointPlan
+    from repro_torch.serve.engine import clear_exec_groups
+    result = {}
+    for name, vector in plans.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        clear_exec_groups()
+        live = fresh_peak()
+        client = _planned(cfg, weights, "cuda", EndpointPlan(vector=vector))
+        for attempt in range(2):
+            with _CaptureClock() as clock:
+                outs, counts, expect, wall, _ = _fleet_run(client,
+                                                           prompts_at)
+            tok = sum(map(len, outs))
+            groups = {id(w.engine.group): w.engine.group
+                      for w in client.workers}
+            graphs = [w.engine.graph_count() for w in client.workers]
+            compiles = [g.compile_count() for g in groups.values()]
+            if counts != expect or max(graphs) > HORIZON \
+                    or (attempt and clock.count):
+                bad.append(f"planner bf16 {name}: launches {counts} != "
+                           f"{expect} or graphs {graphs}")
+            if attempt == 0:
+                pools = _pool_bytes(groups.values())
+                reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+                result[name] = {"tok_s": tok / wall, "graphs": graphs,
+                                "compiles": compiles, "pools": pools,
+                                "reserved": reserved}
+                log(f"planner bf16 {name} ({vector.label}, {len(groups)} "
+                    f"exec groups): {tok} tokens in {wall:.2f}s host, "
+                    f"{tok / wall:.1f} tok/s (captures included); graphs "
+                    f"per engine {graphs} ({clock.count} captured in "
+                    f"{clock.seconds:.2f}s); specializations per exec group "
+                    f"{compiles}; graph pools "
+                    + (f"{pools / 2 ** 20:.1f} MiB" if pools is not None
+                       else "not measured")
+                    + f"; max_memory_reserved {reserved:.2f} GiB ({live:.2f}"
+                    f" GiB live before); on {card}")
+            else:
+                result[name]["tok_s_again"] = tok / wall
+                log(f"  second run: {tok / wall:.1f} tok/s, {clock.count} "
+                    f"graphs captured, specializations per exec group "
+                    f"{compiles}; on {card}")
+        del client
+    return result
+
+
+def serve_planner(cfg, params, first_prompts, card: str) -> dict:
+    """The planner at full width: qwen2-0.5b on phase 4's weights, 8
+    workers of 4 slots (the committed repository's fleet), max_len 1024,
+    horizon 8, phase 11's 32 requests of 64 tokens in two bursts.  fp32
+    runs of analytic and repository-resolved ``Hints`` (and the explicit
+    plan of the analytic vector, and the adaptive fleet) are gated on
+    tokens, launches and graphs; the smoke config's adaptive fleet must
+    report on the card what it reports on the CPU; bf16 runs report the
+    tuned plan against the analytic one.  -> the bf16 numbers."""
+    import tempfile
+    from repro_torch.models import Model
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prompts_at = _fleet_prompts(cfg.vocab, first_prompts)
+    bad = []
+    with tempfile.TemporaryDirectory() as directory:
+        w32 = Model(cfg32, "cuda").prepare_params(params)
+        analytic, tuned = _planner_fp32(cfg32, w32, prompts_at, directory,
+                                        card, bad)
+        del w32
+        _planner_smoke_card_vs_cpu(directory, card, bad)
+    result = {}
+    if tuned is not None:
+        weights = Model(cfg, "cuda").prepare_params(params)
+        result = _planner_bf16(cfg, weights, prompts_at,
+                               {"tuned": tuned, "analytic": analytic},
+                               card, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -2215,8 +2517,13 @@ def main() -> int:
             "recurrentgemma-2b": rg["flash_launches"]})
     if rg is not None:
         rg_kernel = phase("rglru_scan timing", time_rglru, rg["launches"])
+    planner = None
+    if served is not None:
+        planner = phase("the planner at full width: hints, a tuned plan "
+                        "repository, adaptive", serve_planner, served[2],
+                        served[3], served[1], card)
     if failed or kernels is None or rg_kernel is None or flash is None \
-            or surface is None or fleet is None:
+            or surface is None or fleet is None or planner is None:
         log(f"FAILED phases: {failed}")
         return 1
     log(f"decode tok/s: qwen2-0.5b contiguous "
@@ -2240,6 +2547,10 @@ def main() -> int:
         f"{fleet[1]['tok_s']:.1f}, {fleet[1]['tok_s_again']:.1f}; single "
         f"engine {fleet['single'][0]:.1f}, {fleet['single'][1]:.1f}; on "
         f"{card}")
+    log("planner bf16, tok/s over host time (first run with captures, "
+        "second run): " + "; ".join(
+            f"{name} {r['tok_s']:.1f}, {r['tok_s_again']:.1f}"
+            for name, r in planner.items()) + f"; on {card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

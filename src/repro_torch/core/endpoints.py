@@ -6,8 +6,9 @@ size mapping that sizes slot pools, page groups, dispatch queues and
 sharing vectors, and ``EndpointModel``, the mlx5 resource accounting of
 a category (``core/policy.py``, ``core/resources.py``) that prices a
 fleet's dispatch plan (``core.channels.DispatchPlan.endpoint_usage``).
-The sweep builders behind the paper's resource-sharing figures come with
-the simulator slice.
+The sweep builders (``build_ctx_shared``, ``build_qp_shared``,
+``build_hybrid``, ``build_cq_shared``) make the models behind the paper's
+resource-sharing figures, which the simulator (``core.ibsim``) runs.
 """
 
 from __future__ import annotations
@@ -212,3 +213,133 @@ def paper_categories() -> list:
     return [Category.TWO_X_DYNAMIC, Category.MPI_EVERYWHERE,
             Category.DYNAMIC, Category.SHARED_DYNAMIC, Category.STATIC,
             Category.MPI_THREADS]
+
+
+# ---------------------------------------------------------------------------
+# Sweep builders for the Section-V resource-sharing analysis (Figs 5-11).
+# ---------------------------------------------------------------------------
+
+def build_ctx_shared(n_threads: int, ctx_ways: int, *,
+                     td_sharing: R.TDSharing = R.TDSharing.MAX_INDEPENDENT,
+                     two_x: bool = False,
+                     cq_share_ways: int = 1,
+                     label: str = "") -> EndpointModel:
+    """x-way CTX sharing (Fig. 7): groups of ``ctx_ways`` threads share one
+    CTX, each thread driving its own TD-assigned QP.  ``two_x`` creates twice
+    as many TDs and uses the even ones ("2xQPs"); ``td_sharing`` selects the
+    proposed sharing attribute (1) or the stock even/odd policy (2)."""
+    if n_threads % ctx_ways:
+        raise ValueError("ctx_ways must divide n_threads")
+    n_ctxs = n_threads // ctx_ways
+    paths: list[ThreadPath] = []
+    total_uars = total_uuars = 0
+    tds_per_ctx = (2 if two_x else 1) * ctx_ways
+    stride = 2 if two_x else 1
+    for ctx_i in range(n_ctxs):
+        ctx = MLX5Context(td_sharing=td_sharing)
+        assignments = []
+        for _ in range(tds_per_ctx):
+            td = ctx.create_td()
+            assignments.append(ctx.create_qp(td=td))
+        for j in range(ctx_ways):
+            a = assignments[j * stride]
+            thread = ctx_i * ctx_ways + j
+            paths.append(ThreadPath(
+                thread=thread, qp=ctx_i * tds_per_ctx + a.qp, ctx=ctx_i,
+                uuar_index=a.uuar.index, uar_page=a.uuar.uar_page,
+                sharing_level=ctx.sharing_level_of(a.qp),
+                qp_lock=not a.qp_lock_disabled,
+                uuar_lock=a.uuar.lock_required, cq=j))
+        total_uars += ctx.uar_pages
+        total_uuars += ctx.data_path_uuars
+    usage = R.ResourceUsage(
+        ctxs=n_ctxs, uars=total_uars, uuars=total_uuars,
+        uuars_used=n_threads, qps=n_ctxs * tds_per_ctx,
+        cqs=n_ctxs * tds_per_ctx, pds=n_ctxs, mrs=n_threads,
+        tds=n_ctxs * tds_per_ctx, qps_active=n_threads)
+    model = EndpointModel(category=None, n_threads=n_threads, paths=paths,
+                          usage=usage,
+                          label=label or f"ctx_shared_{ctx_ways}way")
+    if cq_share_ways > 1:
+        model = _share_cqs(model, cq_share_ways)
+    return model
+
+
+def build_qp_shared(n_threads: int, qp_ways: int,
+                    label: str = "") -> EndpointModel:
+    """x-way QP sharing (Fig. 11): groups of ``qp_ways`` threads share one
+    QP (and its CQ).  Unshared case (ways=1) uses independent TDs; shared
+    QPs cannot live in a TD, so they fall on the static uUARs per the
+    assignment policy."""
+    if n_threads % qp_ways:
+        raise ValueError("qp_ways must divide n_threads")
+    if qp_ways == 1:
+        m = build_ctx_shared(n_threads, n_threads)
+        return dataclasses.replace(m, label=label or "qp_shared_1way")
+    n_qps = n_threads // qp_ways
+    ctx = MLX5Context()
+    assignments = [ctx.create_qp() for _ in range(n_qps)]
+    paths = []
+    for i in range(n_threads):
+        a = assignments[i // qp_ways]
+        paths.append(ThreadPath(
+            thread=i, qp=a.qp, ctx=0, uuar_index=a.uuar.index,
+            uar_page=a.uuar.uar_page, sharing_level=4,
+            qp_lock=True, uuar_lock=a.uuar.lock_required,
+            qp_shared_by=qp_ways, cq=a.qp, cq_shared_by=qp_ways))
+    usage = R.ResourceUsage(
+        ctxs=1, uars=R.STATIC_UARS_PER_CTX, uuars=R.STATIC_UUARS_PER_CTX,
+        uuars_used=ctx.uuars_used, qps=n_qps, cqs=n_qps, pds=1,
+        mrs=n_threads)
+    return EndpointModel(category=None, n_threads=n_threads, paths=paths,
+                         usage=usage, label=label or f"qp_shared_{qp_ways}way")
+
+
+def build_hybrid(n_ranks: int, threads_per_rank: int,
+                 category: Category) -> EndpointModel:
+    """Hybrid MPI+threads process/thread split (paper Section VII stencil):
+    ``n_ranks`` independent processes (own CTX sets), each with
+    ``threads_per_rank`` threads using ``category`` endpoints internally."""
+    per_rank = [EndpointModel.build(category, threads_per_rank)
+                for _ in range(n_ranks)]
+    paths: list[ThreadPath] = []
+    usage = None
+    for r, m in enumerate(per_rank):
+        ctx_off = max((p.ctx for p in paths), default=-1) + 1
+        qp_off = max((p.qp for p in paths), default=-1) + 1
+        for p in m.paths:
+            paths.append(dataclasses.replace(
+                p, thread=r * threads_per_rank + p.thread,
+                ctx=p.ctx + ctx_off, qp=p.qp + qp_off))
+        u = m.usage
+        if usage is None:
+            usage = u
+        else:
+            usage = R.ResourceUsage(
+                ctxs=usage.ctxs + u.ctxs, uars=usage.uars + u.uars,
+                uuars=usage.uuars + u.uuars,
+                uuars_used=usage.uuars_used + u.uuars_used,
+                qps=usage.qps + u.qps, cqs=usage.cqs + u.cqs,
+                pds=usage.pds + u.pds, mrs=usage.mrs + u.mrs,
+                tds=usage.tds + u.tds,
+                qps_active=usage.qps_active + u.qps_active)
+    return EndpointModel(
+        category=category, n_threads=n_ranks * threads_per_rank,
+        paths=paths, usage=usage,
+        label=f"{category.value}_{n_ranks}x{threads_per_rank}")
+
+
+def _share_cqs(model: EndpointModel, ways: int) -> EndpointModel:
+    """Re-map CQs so groups of ``ways`` threads share one CQ (within their
+    CTX), leaving the initiation interface untouched (Fig. 9)."""
+    paths = [dataclasses.replace(
+        p, cq=p.thread // ways, cq_shared_by=ways) for p in model.paths]
+    usage = dataclasses.replace(
+        model.usage, cqs=math.ceil(model.n_threads / ways))
+    return dataclasses.replace(model, paths=paths, usage=usage,
+                               label=f"{model.label}_cq{ways}way")
+
+
+def build_cq_shared(n_threads: int, cq_ways: int) -> EndpointModel:
+    """x-way CQ sharing over maximally independent initiation paths."""
+    return _share_cqs(build_ctx_shared(n_threads, n_threads), cq_ways)

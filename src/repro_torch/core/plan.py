@@ -1,13 +1,19 @@
-"""Endpoint plans: per-resource sharing vectors and presets.
+"""Endpoint plans: per-resource sharing vectors, hints, and presets.
 
-The port's own copy of ``repro.core.plan`` minus the planner: a
-``SharingVector`` holds independent Fig. 4b sharing levels for decode
-**slots**, dispatch **channels**, compiled **execs** and KV **pages**; an
+The port's own copy of ``repro.core.plan``: a ``SharingVector`` holds
+independent Fig. 4b sharing levels for decode **slots**, dispatch
+**channels**, compiled **execs** and KV **pages**; ``Hints`` + ``resolve``
+are the deterministic planner mapping caller intent (latency target,
+burstiness, session ordering, footprint and memory budgets) to a vector,
+consulting a tuned plan repository first when one is given; an
 ``EndpointPlan`` is the resolved deployment ``serve.connect`` consumes.
-``fit_budget`` is the budget loop the live controller
-(``core.adapt.Replanner``) clamps through.  Planner hints (``Hints`` /
-``resolve``) arrive with a later slice; until then ``as_plan`` refuses
-them with ``NotImplementedError``.
+``fit_budget`` is the one budget loop the planner and the live
+controller (``core.adapt.Replanner``) clamp through.
+
+Resolution is pure and deterministic: the same hints always produce the
+same vector, the vector is monotone in the latency target (a tighter
+target never raises any sharing level), and a footprint budget is
+honored whenever any vector can honor it.
 """
 
 from __future__ import annotations
@@ -126,6 +132,90 @@ class SharingVector:
         return sum(f.values()) / len(f)
 
 
+@dataclasses.dataclass(frozen=True)
+class Hints:
+    """Caller intent, resolved by ``resolve`` into a ``SharingVector``.
+
+    Attributes:
+      latency_target_ms: p99-ish request latency the caller cares about;
+        tighter targets resolve to more dedicated (lower) sharing levels.
+        None = latency-indifferent.
+      burstiness: 0..1; high burstiness (>= 0.5) bumps the channel level
+        by one (shared dispatch channels pull stranded requests).
+      session_ordering: requests of one session must start in order:
+        resolves to session-affinity placement.
+      footprint_budget: optional ceiling on
+        ``SharingVector.footprint_score``; the planner raises sharing
+        levels (execs, then channels, then slots) until the vector fits.
+      compile_isolation: a private executable set per worker (exec
+        level 1).
+      memory_budget: optional ceiling on KV-cache reservation as a
+        fraction of the fully dedicated (slot x max_len) footprint,
+        resolved straight to a ``pages`` level (1.0 -> dedicated, <= 0.25
+        -> one fleet-wide pool).
+    """
+
+    latency_target_ms: Optional[float] = None
+    burstiness: float = 0.0
+    session_ordering: bool = False
+    footprint_budget: Optional[float] = None
+    compile_isolation: bool = False
+    memory_budget: Optional[float] = None
+
+    def __post_init__(self):
+        if not 0.0 <= self.burstiness <= 1.0:
+            raise ValueError(f"burstiness must be in [0, 1], "
+                             f"got {self.burstiness!r}")
+        if self.latency_target_ms is not None \
+                and self.latency_target_ms <= 0:
+            raise ValueError("latency_target_ms must be positive")
+        if self.footprint_budget is not None \
+                and not 0.0 < self.footprint_budget:
+            raise ValueError("footprint_budget must be positive")
+        if self.memory_budget is not None \
+                and not 0.0 < self.memory_budget <= 1.0:
+            raise ValueError("memory_budget must be in (0, 1]")
+
+    def resolve(self, *, n_workers: int = 1, n_slots: int = 4,
+                repository=None,
+                use_repository: bool = True) -> "SharingVector":
+        """Module-level ``resolve`` as a method, the repository
+        consultation included."""
+        return resolve(self, n_workers=n_workers, n_slots=n_slots,
+                       repository=repository,
+                       use_repository=use_repository)
+
+
+# latency target (ms) -> base sharing level: tighter targets buy more
+# dedicated resources.  Monotone by construction.
+_LATENCY_LEVELS: Tuple[Tuple[float, int], ...] = (
+    (50.0, 1), (250.0, 2), (1000.0, 3))
+
+
+def _latency_level(target_ms: Optional[float]) -> int:
+    if target_ms is None:
+        return 2          # the scalable middle: the paper's default pick
+    for bound, level in _LATENCY_LEVELS:
+        if target_ms < bound:
+            return level
+    return 4
+
+
+# memory budget (fraction of dedicated KV reservation) -> pages level: a
+# tighter budget never lowers the pages level.
+_MEMORY_LEVELS: Tuple[Tuple[float, int], ...] = (
+    (1.0, 1), (0.5, 2), (0.25, 3))
+
+
+def _pages_level(memory_budget: Optional[float]) -> int:
+    if memory_budget is None:
+        return 1          # dedicated reservation: the contiguous cache
+    for bound, level in _MEMORY_LEVELS:
+        if memory_budget >= bound:
+            return level
+    return 4
+
+
 def fit_budget(vec: SharingVector, budget: Optional[float], *,
                n_workers: int = 1, n_slots: int = 4) -> SharingVector:
     """Raise sharing levels (execs, then channels, then slots) until the
@@ -141,6 +231,32 @@ def fit_budget(vec: SharingVector, budget: Optional[float], *,
         else:
             break                     # fully shared: nothing left to give
     return vec
+
+
+def resolve(hints: Hints, *, n_workers: int = 1, n_slots: int = 4,
+            repository=None, use_repository: bool = True
+            ) -> SharingVector:
+    """Deterministically map intent to a ``SharingVector``.
+
+    ``repository`` is an optional tuned-plan store: anything with
+    ``resolve_hints(hints, n_workers=, n_slots=) ->
+    Optional[SharingVector]``, canonically ``tune.PlanRepository``.  It
+    is consulted first: a stored Pareto-frontier plan measured for this
+    fleet size and satisfying the hints' constraints wins over the
+    analytic mapping below.  A miss (or ``use_repository=False``) falls
+    back to the analytic planner."""
+    if repository is not None and use_repository:
+        vec = repository.resolve_hints(hints, n_workers=n_workers,
+                                       n_slots=n_slots)
+        if vec is not None:
+            return vec
+    base = _latency_level(hints.latency_target_ms)
+    channels = min(4, base + (1 if hints.burstiness >= 0.5 else 0))
+    vec = SharingVector(slots=base, channels=channels,
+                        execs=1 if hints.compile_isolation else 4,
+                        pages=_pages_level(hints.memory_budget))
+    return fit_budget(vec, hints.footprint_budget,
+                      n_workers=n_workers, n_slots=n_slots)
 
 
 Buckets = Union[None, str, Tuple[int, ...]]
@@ -252,6 +368,23 @@ class EndpointPlan:
         category = name if isinstance(name, Category) else Category(name)
         return cls.from_category(category, **overrides)
 
+    @classmethod
+    def from_hints(cls, hints: Hints, *, repository=None,
+                   use_repository: bool = True,
+                   **overrides) -> "EndpointPlan":
+        n_workers = overrides.get("n_workers", 1)
+        n_slots = overrides.get("n_slots", 4)
+        vec = resolve(hints, n_workers=n_workers, n_slots=n_slots,
+                      repository=repository,
+                      use_repository=use_repository)
+        if hints.session_ordering:
+            overrides.setdefault("placement", "session_affinity")
+        if hints.footprint_budget is not None:
+            # an adaptive run keeps honoring the ceiling the planner
+            # resolved under (core.adapt.Replanner budget cap)
+            overrides.setdefault("adapt_budget", hints.footprint_budget)
+        return cls(vector=vec, **overrides)
+
     @property
     def category(self) -> Optional[Category]:
         """The remembered preset, else the canonical category of a
@@ -295,27 +428,25 @@ PRESETS = {c.value: SharingVector.diagonal(c) for c in Category}
 
 def as_plan(spec, **overrides) -> EndpointPlan:
     """Coerce anything plan-shaped into an ``EndpointPlan``:
-    ``EndpointPlan`` (overrides applied) | ``SharingVector`` |
-    ``Category`` | preset name str | None (default plan)."""
+    ``EndpointPlan`` (overrides applied) | ``Hints`` | ``SharingVector``
+    | ``Category`` | preset name str | None (default plan)."""
     if spec is None:
         return EndpointPlan(**overrides)
     if isinstance(spec, EndpointPlan):
         return dataclasses.replace(spec, **overrides) if overrides else spec
+    if isinstance(spec, Hints):
+        return EndpointPlan.from_hints(spec, **overrides)
     if isinstance(spec, SharingVector):
         return EndpointPlan(vector=spec, **overrides)
     if isinstance(spec, Category):
         return EndpointPlan.from_category(spec, **overrides)
     if isinstance(spec, str):
         return EndpointPlan.from_preset(spec, **overrides)
-    if type(spec).__name__ == "Hints":
-        raise NotImplementedError(
-            "planner hints are not ported yet: Hints and the planner come "
-            "with the planner slice; pass a preset, SharingVector or "
-            "EndpointPlan")
     raise TypeError(f"cannot interpret {spec!r} as an EndpointPlan")
 
 
 __all__ = [
-    "RESOURCES", "PAGED_RESOURCES", "SharingVector", "fit_budget",
-    "EndpointPlan", "PRESETS", "as_plan", "Buckets", "parse_roles",
+    "RESOURCES", "PAGED_RESOURCES", "SharingVector", "Hints",
+    "fit_budget", "resolve", "EndpointPlan", "PRESETS", "as_plan",
+    "Buckets", "parse_roles",
 ]

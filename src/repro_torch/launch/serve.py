@@ -32,10 +32,17 @@ fleet of engines behind the fabric router.
   python -m repro_torch.launch.serve --smoke --device cpu --workers 4 \
       --plan shared_dynamic --adaptive --traffic phased --max-len 64
 
+  # intent instead of resources: the planner resolves the vector
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --workers 4 \
+      --hint latency_target_ms=80 --hint burstiness=0.9 --slots 8 \
+      --max-len 1024 --decode-horizon 8 --requests 32 --prompt-len 256
+
 Runs on the card unless ``--device cpu`` is given, and prints tokens per
 second and the kernels' launch counts.  A single engine defaults to the
 continuous executor; ``--workers > 1`` serves through the fleet.
-Planner hints arrive with the planner slice.
+``--hint k=v`` (repeatable) declares intent that the planner resolves
+(``core.plan.resolve``); it excludes ``--plan``, ``--category`` and
+``--engine``, as in the reference launcher.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.endpoints import Category
-from repro_torch.core.plan import EndpointPlan, SharingVector
+from repro_torch.core.plan import EndpointPlan, Hints, SharingVector
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.obs import enabled_obs
@@ -119,8 +126,37 @@ def parse_vector(spec: str) -> SharingVector:
     return SharingVector(**fields)
 
 
+_HINT_TYPES = {"latency_target_ms": float, "burstiness": float,
+               "footprint_budget": float, "memory_budget": float,
+               "session_ordering": lambda v: v.lower() in ("1", "true",
+                                                           "yes", "on"),
+               "compile_isolation": lambda v: v.lower() in ("1", "true",
+                                                            "yes", "on")}
+
+
+def parse_hints(items) -> Hints:
+    """--hint k=v (repeatable) -> Hints."""
+    fields = {}
+    for item in items:
+        k, _, v = item.partition("=")
+        if k not in _HINT_TYPES:
+            raise ValueError(f"unknown hint {k!r}; one of "
+                             f"{sorted(_HINT_TYPES)}")
+        fields[k] = _HINT_TYPES[k](v)
+    return Hints(**fields)
+
+
 def build_plan(args, ap) -> EndpointPlan:
     fleet = args.workers > 1
+    if args.plan and args.hint:
+        ap.error("--plan and --hint are exclusive: a plan IS resolved "
+                 "hints")
+    if args.hint and args.category:
+        ap.error("--category conflicts with --plan/--hint; the preset "
+                 "spelling is --plan " + args.category)
+    if args.hint and args.engine is not None:
+        ap.error(f"--engine {args.engine} conflicts with --plan/--hint "
+                 f"(a plan resolves its own executor)")
     if fleet and args.engine == "wave":
         ap.error("--workers > 1 serves through continuous-engine workers; "
                  "--engine wave only applies to a single engine")
@@ -157,7 +193,11 @@ def build_plan(args, ap) -> EndpointPlan:
         ap.error("--pages must be a sharing level in 1..4")
     preset = args.plan if args.plan is not None else args.category
     try:
-        if preset is None and fleet:
+        if args.hint:
+            # a plan resolved from hints picks its own executor
+            plan = EndpointPlan.from_hints(parse_hints(args.hint),
+                                           **dict(knobs, executor="auto"))
+        elif preset is None and fleet:
             # a bare fleet keeps the reference launcher's default:
             # dedicated slots and queues, one exec group
             plan = EndpointPlan(
@@ -171,6 +211,8 @@ def build_plan(args, ap) -> EndpointPlan:
         else:
             plan = EndpointPlan(vector=parse_vector(args.plan), **knobs)
     except (TypeError, ValueError) as e:
+        if args.hint:
+            ap.error(str(e))
         ap.error(f"--plan must be a preset "
                  f"({', '.join(c.value for c in Category)}) or "
                  f"'slots=..,channels=..[,execs=..,pages=..]': {e}")
@@ -204,6 +246,12 @@ def main(argv=None):
                     help="endpoint plan: a preset (one of "
                          f"{[c.value for c in Category]}) or an explicit "
                          "vector 'slots=1,channels=3[,execs=4,pages=2]'")
+    ap.add_argument("--hint", action="append", default=[],
+                    metavar="K=V",
+                    help="intent for the planner (repeatable): "
+                         "latency_target_ms=, burstiness=, "
+                         "session_ordering=, footprint_budget=, "
+                         "compile_isolation=, memory_budget=")
     ap.add_argument("--engine", default=None,
                     choices=("wave", "continuous"),
                     help="single-engine scheduler (default continuous; "
@@ -391,10 +439,12 @@ def report_fleet(client, args) -> None:
           f"{'/'.join(f'{x * 100:.0f}%' for x in foot.values())}), "
           f"endpoint uuars={u['uuars'] * 100:.1f}% "
           f"memory={u['memory'] * 100:.1f}%")
-    groups = {id(w.engine.group) for w in client.workers}
+    groups = {id(w.engine.group): w.engine.group for w in client.workers}
     print(f"  engines: {len(client.workers)} over {len(groups)} exec "
-          f"groups, {sum(w.engine.compile_count() for w in client.workers)}"
-          f" horizon graphs")
+          f"groups, {sum(w.engine.graph_count() for w in client.workers)}"
+          f" horizon graphs, "
+          f"{sum(g.compile_count() for g in groups.values())} "
+          f"specializations")
     if rep.roles is not None or rep.handoffs or rep.migrations:
         topo = (f"{rep.roles[0]}P+{rep.roles[1]}D"
                 if rep.roles is not None else "co-located")
@@ -429,7 +479,8 @@ def report_continuous(engine) -> None:
           f"{engine.stats['decode_steps']} decode steps in "
           f"{engine.stats['decode_calls']} calls "
           f"(horizon {engine.decode_horizon}, "
-          f"{engine.compile_count()} horizon graphs), "
+          f"{engine.graph_count()} horizon graphs, "
+          f"{engine.compile_count()} specializations), "
           f"{engine.stats['prefills']} prefills for "
           f"{engine.stats['prefilled_requests']} requests "
           f"(buckets {list(engine.prefill_buckets) or 'off'})")

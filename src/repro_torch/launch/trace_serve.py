@@ -152,7 +152,7 @@ def trace(eng, prompts, max_new: int = MAX_NEW,
     sync()
     capture_s = time.perf_counter() - t0
     graph = decode_window("decode graph")
-    graph.update(graphs=eng.compile_count(), capture_horizon_s=capture_s)
+    graph.update(graphs=eng.graph_count(), capture_horizon_s=capture_s)
     t0 = time.perf_counter()
     steps0 = eng.stats["decode_steps"]
     for _ in range(decode_calls):

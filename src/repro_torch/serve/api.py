@@ -2,6 +2,9 @@
 
     client = serve.connect(cfg, "shared_dynamic")          # on the card
     client = serve.connect(cfg, SharingVector(pages=4), device="cpu")
+    client = serve.connect(cfg, Hints(latency_target_ms=80,
+                                      burstiness=0.9),
+                           plan_repository=PlanRepository("r.sqlite"))
     s = client.stream()                  # ordered lane
     s.submit(prompt_a); s.submit(prompt_b)
     client.submit(prompt_c)              # unordered
@@ -24,8 +27,10 @@ group.  ``connect(obs=...)`` records every run's spans and metrics;
 ``adaptive=True`` attaches a ``core.adapt.Replanner`` that does so from
 each window's telemetry.  Fault injection, recovery and migrations
 belong to the fleet and raise ``ValueError`` on a single-engine plan, as
-in the reference.  Planner hints and the tuned-plan repository raise
-``NotImplementedError`` until the planner slice.
+in the reference.  ``Hints`` resolve through the planner
+(``core.plan.resolve``), consulting a tuned-plan repository
+(``tune.PlanRepository``) first when ``connect`` attaches one; the
+adaptive controller jumps between that repository's frontier plans.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.adapt import Replanner, WindowStats
-from repro_torch.core.plan import EndpointPlan, SharingVector, as_plan
+from repro_torch.core.plan import (EndpointPlan, Hints, SharingVector,
+                                   as_plan)
 from repro_torch.models.model import Model, resolve_device
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NOOP_OBS, PID_REQUESTS, Observability
@@ -111,7 +117,7 @@ class ServeClient:
                  obs: Optional[Observability] = None,
                  faults: Union[FaultPlan, str, None] = None,
                  recovery: Optional[RecoveryPolicy] = None,
-                 migrations=None):
+                 plan_repository=None, migrations=None):
         if plan.placement not in POLICIES:
             raise ValueError(f"unknown placement {plan.placement!r}; "
                              f"one of {sorted(POLICIES)}")
@@ -125,6 +131,11 @@ class ServeClient:
                 "fault injection / crash recovery / live migration live "
                 "on the fleet fabric (plan.n_workers > 1); this plan "
                 f"resolved to the {self.executor!r} executor")
+        #: tuned-plan store (DESIGN.md §16, duck-typed
+        #: ``tune.PlanRepository``): consulted by hint re-resolution in
+        #: ``replan`` and handed to the adaptive controller, whose
+        #: transitions then jump to measured frontier plans
+        self.plan_repository = plan_repository
         #: observability bundle (DESIGN.md §14): the no-op recorder and
         #: registry unless ``connect(..., obs=enabled_obs())``
         self.obs = obs if obs is not None else NOOP_OBS
@@ -469,7 +480,8 @@ class ServeClient:
         plan = self.plan
         adapt = Replanner(plan.vector, n_workers=plan.n_workers,
                           n_slots=plan.n_slots, budget=plan.adapt_budget,
-                          paged=plan.paged)
+                          paged=plan.paged,
+                          repository=self.plan_repository)
         if adapt.vector != plan.vector:
             self._apply_vector(adapt.vector)
             self.plan = dataclasses.replace(plan, preset=None,
@@ -502,12 +514,13 @@ class ServeClient:
         """Migrate this client to a new plan live, without dropping queued
         work or evicting in-flight state (DESIGN.md §12); -> the new plan.
 
-        ``spec`` is an ``EndpointPlan``, a ``SharingVector``, a preset
-        name, or None with field overrides.  Only the sharing vector and
-        the placement may change: a spec that moves a structural field
-        (``STRUCTURAL_FIELDS``) or flips the cache layout between
-        contiguous and paged raises ``ValueError``.  ``Hints`` raise
-        ``NotImplementedError`` until the planner slice.  On a fleet the
+        ``spec`` is an ``EndpointPlan``, ``Hints`` (re-resolved against
+        this client's fleet shape and its plan repository), a
+        ``SharingVector``, a preset name, or None with field overrides.
+        Only the sharing vector and the placement may change: a spec that
+        moves a structural field (``STRUCTURAL_FIELDS``) or flips the
+        cache layout between contiguous and paged raises ``ValueError``.
+        On a fleet the
         vector lands on every worker, and the next run's router keys its
         channels to it.  The tokens do not change."""
         if self._closed:
@@ -520,8 +533,20 @@ class ServeClient:
             keep.update(placement=plan.placement, adaptive=plan.adaptive,
                         adapt_window_ns=plan.adapt_window_ns,
                         adapt_budget=plan.adapt_budget)
-            keep.update(overrides)
-            new = as_plan(spec, **keep)
+            if isinstance(spec, Hints):
+                # hints resolve their own placement and budget; the live
+                # plan's values would override them
+                if spec.session_ordering:
+                    keep.pop("placement")
+                if spec.footprint_budget is not None:
+                    keep.pop("adapt_budget")
+                keep.update(overrides)
+                # the attached repository first, as connect does
+                new = EndpointPlan.from_hints(
+                    spec, repository=self.plan_repository, **keep)
+            else:
+                keep.update(overrides)
+                new = as_plan(spec, **keep)
         for f in STRUCTURAL_FIELDS:
             if getattr(new, f) != getattr(plan, f):
                 raise ValueError(
@@ -566,16 +591,17 @@ class ServeClient:
                 f"slots={self.plan.n_slots}, device={self.device})")
 
 
-def connect(cfg, plan: Union[EndpointPlan, SharingVector, str, None] = None,
+def connect(cfg, plan: Union[EndpointPlan, Hints, SharingVector, str,
+                             None] = None,
             *, params=None, seed: int = 0, device=None,
             obs: Optional[Observability] = None,
             faults: Union[FaultPlan, str, None] = None,
             recovery: Optional[RecoveryPolicy] = None,
-            plan_repository=None, migrations=None,
-            **overrides) -> ServeClient:
+            plan_repository=None, use_repository: bool = True,
+            migrations=None, **overrides) -> ServeClient:
     """Connect a serving session: resolve ``plan`` (an ``EndpointPlan``,
-    ``SharingVector``, ``Category`` / preset name, or None; ``overrides``
-    set plan fields) and return a ``ServeClient``.
+    ``Hints``, ``SharingVector``, ``Category`` / preset name, or None;
+    ``overrides`` set plan fields) and return a ``ServeClient``.
 
     ``device`` None means the card: RuntimeError when CUDA is absent.
     ``params`` is a tree of tensors in the reference's layout (see
@@ -593,17 +619,26 @@ def connect(cfg, plan: Union[EndpointPlan, SharingVector, str, None] = None,
     ``roles="2P+2D"`` (a plan field or override) splits the fleet into
     prefill-only and decode-only workers, the KV handed off after each
     prefill; ``adaptive=True`` re-plans live from each window's
-    telemetry.  ``plan_repository`` raises ``NotImplementedError`` until
-    the planner slice brings ``tune/``."""
-    if plan_repository is not None:
-        raise NotImplementedError(
-            "connect(plan_repository=...) is not ported yet: the tuned-"
-            "plan repository comes with the planner slice")
+    telemetry.
+
+    ``plan_repository`` (DESIGN.md §16) attaches a tuned-plan store
+    (``tune.PlanRepository``): ``Hints`` resolution consults its stored
+    Pareto-frontier plans before the analytic planner
+    (``use_repository=False`` resolves analytically and keeps the store
+    for the adaptive controller), and the adaptive controller jumps
+    between its frontier plans instead of stepping one axis at a
+    time."""
     device = resolve_device(device)
-    resolved = as_plan(plan, **overrides)
+    if isinstance(plan, Hints) and plan_repository is not None:
+        resolved = EndpointPlan.from_hints(
+            plan, repository=plan_repository,
+            use_repository=use_repository, **overrides)
+    else:
+        resolved = as_plan(plan, **overrides)
     if params is None:
         params = Model(cfg, device).init(
             torch.Generator().manual_seed(seed))
     return ServeClient(cfg, params, resolved, device=device, obs=obs,
                        faults=faults, recovery=recovery,
+                       plan_repository=plan_repository,
                        migrations=migrations)

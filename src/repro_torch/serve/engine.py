@@ -29,7 +29,7 @@ The reference's jitted executables (``SharedSteps``) have one
 counterpart here, the horizon's: ``HorizonGraphs`` captures the fused
 horizon as one ``torch.cuda.CUDAGraph`` per ``n_steps`` at first use, on
 the engine's static buffers, and replays it as one launch per horizon;
-``compile_count()`` counts those graphs.  A graph binds the addresses of
+``graph_count()`` counts those graphs.  A graph binds the addresses of
 one engine's buffers, so what the engines of an exec group share is the
 memory the captures draw on: one ``ExecGroup`` per (config, ragged
 kernel, group id, device), the counterpart of ``SharedSteps``' key, owns
@@ -37,6 +37,13 @@ one graph memory pool that every engine of the group captures into.
 Admission (prefill and scatter, the reference's jitted ``admit_packed``)
 and the K=1 loop stay eager.  Cache scatters write in place, indexed by
 the slot assignment the host already knows.
+
+The execs axis' signal is the reference's: wherever the reference calls
+one of its seven jitted executables, the engine records the key jit
+caches that call under (the shapes and dtypes of the array arguments and
+the static arguments, ``signature``) in its ``ExecGroup``, and
+``compile_count()`` is the number of distinct keys, on the CPU as on the
+card.
 
 The engine's other entry points keep those addresses too: a KV handoff
 (``prefill_only`` on one engine, a ``Request`` carrying the ``KVHandoff``
@@ -231,6 +238,29 @@ def _set_launch_counts(counts: List[Dict[str, int]]) -> None:
         counter.update(saved)
 
 
+#: the reference's jitted executables, ``SharedSteps``' fields: the
+#: entries an exec group counts specializations of
+ENTRIES = ("decode", "prefill", "merge", "admit_packed", "merge_paged",
+           "admit_packed_paged", "horizon")
+#: the entries the reference jits from module-level functions: jax keeps
+#: one cache per function, so every exec group of the process shares
+#: their specializations
+PROCESS_WIDE = ("merge", "merge_paged")
+
+
+def signature(tree):
+    """The key jit caches an argument under: the tree's structure (dict
+    keys, sequence kinds) with each array leaf's shape and dtype; any
+    other leaf is a static argument and keys as itself."""
+    if torch.is_tensor(tree) or isinstance(tree, np.ndarray):
+        return tuple(tree.shape), str(tree.dtype).removeprefix("torch.")
+    if isinstance(tree, dict):
+        return tuple((k, signature(v)) for k, v in sorted(tree.items()))
+    if isinstance(tree, (list, tuple)):
+        return type(tree).__name__, tuple(signature(v) for v in tree)
+    return tree
+
+
 class ExecGroup:
     """The engines of one exec group (the ``execs`` axis of a
     ``SharingVector``): the port's counterpart of the reference's
@@ -243,8 +273,15 @@ class ExecGroup:
     the group's first capture) that every engine of the group captures
     its horizon graphs into, so at exec level 4 a fleet holds one pool of
     capture intermediates where level 1 holds one per engine.
-    ``captures`` counts the graphs the group's engines captured; the
-    fleet's compile telemetry counts each group once.
+    ``captures`` counts the graphs the group's engines captured.
+
+    The group also keeps the counterpart of the reference's jit caches:
+    ``specializations``, the ``(entry, key)`` pairs its engines ran (one
+    per distinct key, as jit compiles once per key), ``merge`` and
+    ``merge_paged`` in a set per device that every group shares, as
+    jax's cache of a module-level function is.  ``compile_count()`` is
+    the group's count; the fleet's compile telemetry counts each group
+    once.
 
     Sharing the pool is safe under one invariant, which the serving
     stack keeps: the group's graphs replay one at a time, on one stream,
@@ -261,7 +298,27 @@ class ExecGroup:
     def __init__(self, key: tuple):
         self.key = key
         self.captures = 0
+        self.specializations: set = set()
         self._pool = None
+
+    def _process_wide(self) -> set:
+        return _PROCESS_SPECIALIZATIONS.setdefault(self.key[3], set())
+
+    def _keys(self, entry: str) -> set:
+        return self._process_wide() if entry in PROCESS_WIDE \
+            else self.specializations
+
+    def record(self, entry: str, *key) -> None:
+        """One call of the reference's ``entry`` under jit key ``key``."""
+        self._keys(entry).add((entry, key))
+
+    def count(self, entry: str) -> int:
+        """Specializations of one entry so far (its jit cache's size)."""
+        return sum(e == entry for e, _ in self._keys(entry))
+
+    def compile_count(self) -> int:
+        """Specializations of the group's seven entries so far."""
+        return len(self.specializations) + len(self._process_wide())
 
     def pool(self):
         """The group's graph memory pool (made at the first capture)."""
@@ -273,6 +330,16 @@ class ExecGroup:
 #: every exec group of the process, by (config, use_ragged_kernel,
 #: group id, device), as the reference caches ``_shared_steps``
 _EXEC_GROUPS: Dict[tuple, ExecGroup] = {}
+#: the process-wide entries' specializations, by device
+_PROCESS_SPECIALIZATIONS: Dict[str, set] = {}
+
+
+def clear_exec_groups() -> None:
+    """Forget every exec group and every specialization (the
+    counterpart of clearing jax's caches): engines made after this start
+    counting from 0.  Engines that exist keep their groups."""
+    _EXEC_GROUPS.clear()
+    _PROCESS_SPECIALIZATIONS.clear()
 
 
 def shared_exec_group(cfg: ArchConfig, use_ragged_kernel: bool,
@@ -416,6 +483,10 @@ class ServeEngine:
         self.plan = plan
         self.n_slots = plan.n_slots
         self.max_len = plan.max_len
+        # the reference's wave engine runs exec group 0's jitted prefill
+        # and decode, without the ragged kernel
+        self.group = shared_exec_group(cfg, False, 0, self.device)
+        self._params_sig = signature(self.params)
         self.queue: deque = deque()
         self.done: List[Request] = []
         self.latency: Dict[int, float] = {}      # rid -> s from run() start
@@ -449,12 +520,17 @@ class ServeEngine:
             np.stack([np.asarray(r.prompt, np.int32) for r in wave]),
             device=self.device)
         cache = self.model.init_cache(b, self.max_len)
+        self.group.record("prefill", self._params_sig, signature(prompts),
+                          signature(cache))
         logits, cache = self.model.prefill(self.params, {"tokens": prompts},
                                            cache)
         next_tok = self._argmax(logits)
         remaining = np.array([r.max_new_tokens for r in wave], np.int64)
         alive = np.ones(b, bool)
         budget = min(self.max_len - plen - 1, int(max(remaining)))
+        if budget > 0:                  # every row is alive at step 1
+            self.group.record("decode", self._params_sig, signature(cache),
+                              (b,))
         for _ in range(max(0, budget)):
             if not alive.any():
                 break
@@ -524,6 +600,10 @@ class ContinuousEngine:
         self.exec_group = exec_group
         self.group = shared_exec_group(cfg, self.use_ragged_kernel,
                                        exec_group, self.device)
+        # the jit keys of the arguments every call shares: the weights
+        # here, the persistent cache at start()
+        self._params_sig = signature(self.params)
+        self._cache_sig = None
         # ----- paged KV cache (plan-gated; DESIGN.md §13) ----------------
         self.page_pool: Optional[PagePool] = None
         self.page_size = 0
@@ -577,11 +657,24 @@ class ContinuousEngine:
                          f"bucket {self.prefill_buckets[-1]}")
 
     def compile_count(self) -> int:
+        """Specializations of the engine's exec group so far, as the
+        reference counts its jit caches: one per distinct key of each of
+        the seven entries (``ExecGroup``), the same on the CPU and on the
+        card.  The execs axis' signal: the adaptive controller diffs it
+        per window."""
+        return self.group.compile_count()
+
+    def graph_count(self) -> int:
         """Horizon graphs this engine has captured: at most one per
         horizon length 1..K, 0 on the CPU (nothing is captured there) and
-        at K=1.  The counterpart of the reference's jit specializations,
-        the execs axis' signal."""
+        at K=1."""
         return 0 if self._horizons is None else len(self._horizons.graphs)
+
+    def _record_merge(self, one) -> None:
+        """A batch-1 cache lands in a slot: the reference's jitted
+        ``merge`` (``merge_paged`` on the paged layout)."""
+        self.group.record("merge_paged" if self.page_pool is not None
+                          else "merge", self._cache_sig, signature(one))
 
     def submit(self, req: Request):
         req.output = []
@@ -649,8 +742,11 @@ class ContinuousEngine:
         ``slot``."""
         prompt = self._dev(np.asarray(req.prompt, np.int32)[None])
         one = self.model.init_cache(1, self.max_len)
+        self.group.record("prefill", self._params_sig, signature(prompt),
+                          signature(one))
         logits, one = self.model.prefill(self.params, {"tokens": prompt},
                                          one)
+        self._record_merge(one)
         self._land(one, logits, [(slot, req)])
         self.stats["prefills"] += 1
         self.stats["prefilled_requests"] += 1
@@ -667,6 +763,10 @@ class ContinuousEngine:
         for j, (_, req) in enumerate(batch):
             toks[j, :len(req.prompt)] = req.prompt
             last[j] = len(req.prompt) - 1
+        self.group.record(
+            "admit_packed_paged" if self.page_pool is not None
+            else "admit_packed", self._params_sig, self._cache_sig,
+            signature(toks), self.max_len)
         logits, many = self.model.prefill(
             self.params, {"tokens": self._dev(toks)},
             self.model.init_cache(n, self.max_len),
@@ -719,6 +819,8 @@ class ContinuousEngine:
                 f"{self.max_len}")
         prompt = self._dev(np.asarray(req.prompt, np.int32)[None])
         one = self.model.init_cache(1, self.max_len)
+        self.group.record("prefill", self._params_sig, signature(prompt),
+                          signature(one))
         logits, one = self.model.prefill(self.params, {"tokens": prompt},
                                          one)
         first = int(logits.argmax(-1)[0])                   # one sync
@@ -738,6 +840,7 @@ class ContinuousEngine:
         resumes at the payload's position, budget and next token.  No
         forward pass runs."""
         h = req.kv
+        self._record_merge(h.cache)
         if self.page_pool is not None:
             _scatter_slots_paged(self._cache, h.cache, [slot], [h.pos],
                                  self._pt, self.page_pool.total_pages)
@@ -833,8 +936,8 @@ class ContinuousEngine:
         """Publish this engine's absolute counters into an
         ``obs.MetricsRegistry`` (DESIGN.md §14) under a ``worker`` label;
         ``set_total`` is idempotent, so any cadence is safe.
-        ``engine.jit_compiles`` reads ``compile_count()``: the horizon
-        graphs (the reference counts its jit specializations)."""
+        ``engine.jit_compiles`` reads ``compile_count()``, the exec
+        group's specializations, as the reference's does."""
         for name, axis in (("decode_steps", "execs"),
                            ("decode_calls", "execs"),
                            ("host_syncs", "execs"),
@@ -866,10 +969,12 @@ class ContinuousEngine:
         decoding and every page mapping survives.  ``exec_group``
         moves the engine to that group (``ExecGroup``): the reference
         swaps the engine onto the group's shared executables; here its
-        future captures go to the group's graph memory pool, while the
-        graphs it has keep running from the pool they were captured in,
-        so ``compile_count()`` does not move.  No path touches the cache
-        or the decode state, so the tokens do not change."""
+        future specializations count in that group (``compile_count()``
+        reads the new group's count) and its future captures go to the
+        group's graph memory pool, while the graphs it has keep running
+        from the pool they were captured in, so ``graph_count()`` does not
+        move.  No path touches the cache or the decode state, so the
+        tokens do not change."""
         changed = False
         if slot_level is not None and int(slot_level) != self.pool.level:
             self.pool.regroup(slot_level)
@@ -924,6 +1029,7 @@ class ContinuousEngine:
         else:
             self._cache = self.model.init_cache(b, self.max_len,
                                                 per_slot=True)
+        self._cache_sig = signature(self._cache)
         self._slot_req = [None] * b
         self._next_tok = np.zeros(b, np.int32)
         self._remaining = np.zeros(b, np.int32)
@@ -1024,6 +1130,8 @@ class ContinuousEngine:
         active = [i for i, r in enumerate(self._slot_req) if r is not None]
         if not active:
             return []
+        self.group.record("decode", self._params_sig, self._cache_sig,
+                          (self.n_slots,))
         logits, self._cache = self.model.decode_step(
             self.params, self._cache, self._dev(self._next_tok),
             use_ragged_kernel=self.use_ragged_kernel)
@@ -1077,6 +1185,9 @@ class ContinuousEngine:
         if self.n_active == 0:
             return []
         k = self.decode_horizon
+        # the reference runs every horizon at its full K (static)
+        self.group.record("horizon", self._params_sig, self._cache_sig, k,
+                          self.max_len)
         trace = self._run_horizon(self._horizon_steps())
         # ONE blocking transfer drains the whole K-step trace
         packed = torch.stack([trace[n].to(torch.int32) for n, _ in _TRACE])

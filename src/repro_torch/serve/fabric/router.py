@@ -405,12 +405,11 @@ class EngineWorker:
             page_level=(page_level if self.engine.paged else None))
 
     def compile_probe(self):
-        """-> (exec group identity, horizon graphs its engines captured
-        so far).  The key lets the router count each SHARED group once —
-        at exec level 4 the whole fleet reports one group, not N copies
-        of it.  0 captures on the CPU, where nothing is captured."""
+        """-> (exec group identity, its specializations so far).  The key
+        lets the router count each SHARED group once — at exec level 4
+        the whole fleet reports one group, not N copies of it."""
         group = self.engine.group
-        return id(group), group.captures
+        return id(group), group.compile_count()
 
     def capacity(self) -> int:
         return max(0, len(self.engine.free_slots())

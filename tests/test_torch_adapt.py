@@ -171,16 +171,21 @@ def _fleet(execs: int, n_workers: int = 4):
 @pytest.mark.parametrize("execs,keys", [(4, 1), (3, 1), (2, 2), (1, 4)])
 def test_compile_probe_keys_follow_the_execs_level(execs, keys):
     """One exec group (one probe key, one graph memory pool on the card)
-    per execs group of the fleet: one at level 4, N at level 1; on the
-    CPU nothing is captured, so every count is 0."""
+    per execs group of the fleet: one at level 4, N at level 1.  A probe
+    reads its group's specializations, and the fleet counts each group
+    once; on the CPU nothing is captured, so every graph count is 0."""
     client = _fleet(execs)
     probes = [w.compile_probe() for w in client.workers]
     assert len({key for key, _ in probes}) == keys
-    assert [count for _, count in probes] == [0] * 4
-    assert len({id(w.engine.group) for w in client.workers}) == keys
+    assert [count for _, count in probes] == \
+        [w.engine.group.compile_count() for w in client.workers]
+    assert [w.engine.graph_count() for w in client.workers] == [0] * 4
+    groups = {id(w.engine.group): w.engine.group for w in client.workers}
+    assert len(groups) == keys
     assert [w.engine.exec_group for w in client.workers] == \
         [client.plan.exec_group_of(w) for w in range(4)]
-    assert client.report.metrics.total("exec.jit_compiles") == 0
+    assert client.report.metrics.total("exec.jit_compiles") == \
+        sum(g.compile_count() for g in groups.values()) > 0
 
 
 def test_exec_groups_are_keyed_like_the_reference_steps():
@@ -207,7 +212,8 @@ def test_regroup_moves_an_engine_between_groups_and_keeps_its_graphs():
     assert eng.regroup(exec_group=0)
     assert eng.group is client.workers[0].engine.group is not old
     assert eng._horizons is graphs and graphs.group is eng.group
-    assert eng.compile_count() == 0
+    assert eng.graph_count() == 0
+    assert eng.compile_count() == eng.group.compile_count()
     client.replan(TVector(execs=4))
     assert len({id(w.engine.group) for w in client.workers}) == 1
     assert len({w.compile_probe()[0] for w in client.workers}) == 1

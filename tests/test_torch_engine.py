@@ -170,10 +170,13 @@ def test_generate_returns_outputs_in_input_order():
 
 
 def test_unported_executors_raise():
-    """Only the tuned-plan repository still raises NotImplementedError
-    (the planner slice); the fleet executor and adaptive re-planning
-    serve; faults on a single-engine plan are the caller's error
-    (ValueError), as in the reference, and the wave executor serves."""
+    """Nothing of the facade raises NotImplementedError any more: the
+    fleet executor, adaptive re-planning, planner hints and a tuned-plan
+    repository serve; faults on a single-engine plan are the caller's
+    error (ValueError), as in the reference, and the wave executor
+    serves."""
+    from repro_torch.core.plan import Hints
+    from repro_torch.tune import PlanRepository
     _, tcfg, _, tparams = _served()
     fleet = tserve.connect(tcfg, params=tparams, n_workers=2, device="cpu")
     assert fleet.executor == "fleet" and fleet.engine is None
@@ -182,9 +185,15 @@ def test_unported_executors_raise():
     adaptive = tserve.connect(tcfg, params=tparams, adaptive=True,
                               device="cpu")
     assert adaptive.executor == "continuous" and adaptive.plan.adaptive
-    with pytest.raises(NotImplementedError, match="planner slice"):
-        tserve.connect(tcfg, params=tparams, device="cpu",
-                       plan_repository=object())
+    # an empty repository: the hints resolve analytically, and the
+    # repository rides along for the controller
+    repo = PlanRepository()
+    hinted = tserve.connect(tcfg, Hints(latency_target_ms=10.0),
+                            params=tparams, device="cpu", adaptive=True,
+                            plan_repository=repo, n_slots=2, max_len=32)
+    assert hinted.plan_repository is repo
+    assert hinted.plan.vector == Hints(latency_target_ms=10.0).resolve()
+    assert hinted.generate([np.arange(1, 5, dtype=np.int32)], 2)[0]
     with pytest.raises(ValueError, match="fleet"):
         tserve.connect(tcfg, params=tparams, device="cpu", faults="x")
     wave = tserve.connect(tcfg, params=tparams, executor="wave",

@@ -10,37 +10,36 @@ K in {1, 8} x {diag1, diag4} and paged p4 at 4 workers, every token
 equals the reference's and so does every field of the ``FleetReport``:
 completions with their worker and ``t_done_ns``, latencies, tok/s,
 p50/p99, occupancy, lock wait, peak depths, endpoint usage, page
-telemetry.  The metrics registry's export is equal too, but for the two
-series derived from compile counts, ``exec.jit_compiles`` and
-``engine.jit_compiles`` (``COMPILE_SERIES``): the reference counts its
-jit cache entries, the port its captured horizon graphs, 0 on the CPU.
-The other scenarios (roles, faults, migrations, streams, adaptive,
-recurrentgemma) are in ``test_torch_fleet_*.py`` and use the helpers
-here.
+telemetry.  The metrics registry's export is equal too, the compile
+series ``exec.jit_compiles`` and ``engine.jit_compiles`` included: both
+packages count the jit specializations of each exec group, and every
+client starts from cleared caches (``clear_caches``).  The other
+scenarios (roles, faults, migrations, streams, adaptive, recurrentgemma)
+are in ``test_torch_fleet_*.py`` and use the helpers here.
 """
 
 import dataclasses
 import functools
 import json
 
+import jax
 import numpy as np
 import pytest
 
 from repro import serve as jserve
 from repro.core.plan import SharingVector as JVector
+from repro.serve import engine as j_engine
 from repro.serve.fabric import canonical_bursty_trace, canonical_faulted_trace
 from repro.serve.recovery import RecoveryPolicy as JPolicy
 from repro_torch import serve as tserve
 from repro_torch.core.plan import SharingVector as TVector
+from repro_torch.serve import engine as t_engine
 from repro_torch.serve.recovery import RecoveryPolicy as TPolicy
 from tests import test_torch_engine as qwen2
 from tests import test_torch_recurrent_engine as rgemma
 from tests.test_torch_fabric import report_dict
 
 MAX_LEN, N_SLOTS, N_WORKERS = 64, 4, 4
-#: the metrics series derived from compile counts: the reference's jit
-#: cache entries against the port's horizon graphs (0 on the CPU)
-COMPILE_SERIES = ("exec.jit_compiles", "engine.jit_compiles")
 #: the served models' (JAX cfg, port cfg, JAX params, port params), fp32
 SERVED = {"qwen2-0.5b": qwen2._served,
           "recurrentgemma-2b": rgemma._served}
@@ -62,11 +61,25 @@ def prompt_of(vocab: int, arrival) -> np.ndarray:
     return rng.integers(1, vocab, size=arrival.prompt_len).astype(np.int32)
 
 
+def clear_caches(side: str) -> None:
+    """Forget the side's exec groups and their specializations, so that a
+    client's compile counts start from 0 whatever ran before it in the
+    process: jax's caches and the reference's shared steps, or the
+    port's exec groups."""
+    if side == "repro":
+        jax.clear_caches()
+        j_engine._shared_steps_cached.cache_clear()
+    else:
+        t_engine.clear_exec_groups()
+
+
 def connect(side: str, arch: str, levels: tuple, **kw):
-    """A client of either package on the served weights; ``levels`` is
-    the sharing vector (slots, channels, execs, pages), ``recovery`` the
-    ``RecoveryPolicy`` fields as (name, value) pairs."""
+    """A client of either package on the served weights, from cleared
+    caches; ``levels`` is the sharing vector (slots, channels, execs,
+    pages), ``recovery`` the ``RecoveryPolicy`` fields as (name, value)
+    pairs."""
     jcfg, tcfg, jparams, tparams = SERVED[arch]()
+    clear_caches(side)
     kw = dict(kw)
     if "recovery" in kw:
         kw["recovery"] = (JPolicy if side == "repro" else TPolicy)(
@@ -98,22 +111,22 @@ def serve(side: str, levels: tuple, k: int, *, arch: str = "qwen2-0.5b",
 @functools.lru_cache(maxsize=None)
 def reference(levels: tuple, k: int, **kw):
     """``serve`` on the reference, cached per module (``kw`` must be
-    hashable)."""
+    hashable).  The run started from cleared caches and its report holds
+    the counts read during it, so a cached run's counts are a fresh
+    run's."""
     return serve("repro", levels, k, **kw)
 
 
-def metrics_json(rep, skip=COMPILE_SERIES) -> dict:
+def metrics_json(rep, skip=()) -> dict:
     data = rep.metrics.to_json()
     data["metrics"] = {n: rows for n, rows in data["metrics"].items()
                        if n not in skip}
     return json.loads(json.dumps(data, sort_keys=True))
 
 
-def assert_reports_equal(got, expect, skip=(),
-                         skip_series=COMPILE_SERIES) -> None:
+def assert_reports_equal(got, expect, skip=(), skip_series=()) -> None:
     """Every field of two ``FleetReport``s equal but ``skip``; the
-    metrics export equal but for ``skip_series`` (the compile-count
-    series)."""
+    metrics export equal but for ``skip_series``."""
     a, b = report_dict(got), report_dict(expect)
     for field in b:
         if field != "metrics" and field not in skip:
@@ -135,6 +148,8 @@ def test_fleet_matches_reference(k, levels):
     assert len(got) == 24 and all(got.values())
     assert t_client.executor == "fleet" == j_client.executor
     assert_reports_equal(t_client.report, j_client.report)
+    assert t_client.report.metrics.total("exec.jit_compiles") == \
+        j_client.report.metrics.total("exec.jit_compiles") > 0
     assert [w.engine.exec_group for w in t_client.workers] == \
         [w.engine.exec_group for w in j_client.workers]
     for tw, jw in zip(t_client.workers, j_client.workers):

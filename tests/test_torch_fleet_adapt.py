@@ -3,16 +3,14 @@ the reference's, live, and recurrentgemma's fleet.  Same workload and
 comparison as ``test_torch_fleet`` (smoke configs at fp32, CPU).
 
 * ``adaptive=True`` at diag2, 4 workers, K 8, ``adapt_window_ns=1e5``:
-  the tokens equal the reference's.  The controller's execs signal
-  differs: the port's ``exec.jit_compiles`` counts captured horizon
-  graphs, 0 on the CPU, where the reference counts its jit cache
-  entries, so the two controllers may take other transitions.  With the
-  reference's compile counts read as 0 (its ``compile_probe`` and
-  ``compile_count`` patched in the test, as the port's CPU reads them),
-  every ``FleetReport`` field, the transitions included, is equal.
+  the tokens and every ``FleetReport`` field equal the reference's, the
+  transitions and the compile series included: both controllers read
+  the same execs signal, the jit specializations of each exec group.
+  With both packages' compile counts read as 0 (``compile_probe`` and
+  ``compile_count`` patched in the test), the two controllers, blind to
+  the execs signal, still take the same transitions.
 * ``adaptive=True`` on the single continuous engine (diag3, K 1): the
-  same tokens; with the reference's counts read as 0, the same
-  transitions at the same engine steps.
+  same tokens and the same transitions at the same engine steps.
 * A manual ``replan`` between two runs at 4 workers (diag3 -> s1c3e4):
   the tokens, the second run's report and every worker's pool level and
   exec group equal the reference's.
@@ -26,27 +24,23 @@ import pytest
 
 from repro.serve import engine as j_engine
 from repro.serve.fabric import router as j_router
-from tests.test_torch_fleet import (COMPILE_SERIES, assert_reports_equal,
-                                    connect, prompt_of, reference, serve,
-                                    trace)
+from repro_torch.serve import engine as t_engine
+from tests.test_torch_fleet import (assert_reports_equal, connect,
+                                    prompt_of, reference, serve, trace)
 from tests.test_torch_fabric import report_dict
 
 DIAG2, DIAG3 = (2, 2, 2, 1), (3, 3, 3, 1)
 S1C3E4 = (1, 3, 4, 1)
-#: what the execs signal moves on this run: the vector path (each
-#: controller walks the execs axis its own way; the slots and channels
-#: moves land in the same windows, so the schedule is the same) and the
-#: engines' regroup counts
-EXECS_FIELDS = ("vector", "transitions", "mean_footprint")
-EXECS_SERIES = COMPILE_SERIES + ("engine.regroups",)
 
 
-def _zero_reference_compiles(monkeypatch):
-    """Read the reference's compile counts as the port reads its own on
-    the CPU: 0."""
+def _zero_compiles(monkeypatch):
+    """Read both packages' compile counts as 0: the controllers see no
+    execs signal."""
     monkeypatch.setattr(j_router.EngineWorker, "compile_probe",
                         lambda self: (id(self.engine._steps), 0))
     monkeypatch.setattr(j_engine.ContinuousEngine, "compile_count",
+                        lambda self: 0)
+    monkeypatch.setattr(t_engine.ExecGroup, "compile_count",
                         lambda self: 0)
 
 
@@ -59,12 +53,14 @@ def test_adaptive_fleet_tokens_match_reference():
     assert got == expect
     rep = t_client.report
     assert t_client.plan.adaptive and rep.n_windows > 0
-    assert rep.metrics.total("exec.jit_compiles") == 0
-    assert j_client.report.metrics.total("exec.jit_compiles") > 0
-    assert_reports_equal(rep, j_client.report, skip=EXECS_FIELDS,
-                         skip_series=EXECS_SERIES)
+    assert rep.metrics.total("exec.jit_compiles") == \
+        j_client.report.metrics.total("exec.jit_compiles") > 0
+    assert_reports_equal(rep, j_client.report)
+    assert rep.transitions
     assert _slot_channel_moves(rep) == \
         _slot_channel_moves(j_client.report)
+    assert [(t, dataclasses.astuple(v)) for t, v in t_client.transitions] \
+        == [(t, dataclasses.astuple(v)) for t, v in j_client.transitions]
 
 
 def _slot_channel_moves(rep):
@@ -79,7 +75,7 @@ def _slot_channel_moves(rep):
 
 def test_adaptive_fleet_matches_reference_with_its_compiles_read_as_zero(
         monkeypatch):
-    _zero_reference_compiles(monkeypatch)
+    _zero_compiles(monkeypatch)
     expect, j_client = serve("repro", DIAG2, 8, **ADAPT)
     got, t_client = serve("port", DIAG2, 8, **ADAPT)
     assert got == expect
@@ -99,14 +95,13 @@ def _single(side):
     return serve(side, DIAG3, 1, n_workers=1, **ADAPT)
 
 
-def test_adaptive_single_engine_matches_reference(monkeypatch):
-    expect, _ = reference(DIAG3, 1, n_workers=1, **ADAPT)
+def test_adaptive_single_engine_matches_reference():
+    expect, j_client = _single("repro")
     got, t_client = _single("port")
     assert got == expect
     assert t_client.executor == "continuous" and t_client.plan.adaptive
-    _zero_reference_compiles(monkeypatch)
-    zeroed, j_client = _single("repro")
-    assert zeroed == got
+    assert t_client.engine.compile_count() == \
+        j_client.engine.compile_count() > 0
     assert [(s, dataclasses.astuple(v)) for s, v in t_client.transitions] \
         == [(s, dataclasses.astuple(v)) for s, v in j_client.transitions]
     assert t_client.transitions
@@ -175,7 +170,7 @@ def test_recurrentgemma_fleet_matches_reference(roles):
     # the co-located workers' prefills (``prefill_only`` reads the token
     # on both sides)
     assert_reports_equal(t_client.report, j_client.report,
-                         skip_series=COMPILE_SERIES + ("engine.host_syncs",))
+                         skip_series=("engine.host_syncs",))
     for tw, jw in zip(t_client.workers, j_client.workers):
         t_st, j_st = tw.engine.stats, jw.engine.stats
         assert j_st["host_syncs"] - t_st["host_syncs"] == \

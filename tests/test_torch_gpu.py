@@ -784,9 +784,32 @@ def test_horizon_graphs_serve_the_eager_tokens(cuda, arch, pages):
             eng._run_horizon = eng._horizons.body
         done, order, retire, steps, launches = _horizon_run(eng)
         assert launches == _expected_launches(eng, steps), eager
-        assert eng.compile_count() == (0 if eager else len(set(steps)))
+        assert eng.graph_count() == (0 if eager else len(set(steps)))
         runs[eager] = done, order, retire
     assert runs[False] == runs[True]
+
+
+@pytest.mark.parametrize("arch,pages", GRAPH_CASES)
+def test_compile_count_equals_the_cpu_count(cuda, arch, pages):
+    """The execs signal is the same on the card and on the CPU: the same
+    session gives the same specializations per entry, whatever graphs
+    the card captured."""
+    from repro_torch.serve import engine as serve_engine
+    counts = {}
+    for device in ("cpu", "cuda"):
+        serve_engine.clear_exec_groups()
+        card = _horizon_engine(arch, pages, horizon=4)
+        eng = card if device == "cuda" else type(card)(
+            card.cfg, Model(card.cfg, "cpu").init(
+                torch.Generator().manual_seed(0)), card.plan, device="cpu")
+        eng.start()
+        _submit_requests(eng)
+        eng.run()
+        counts[device] = ({e: eng.group.count(e)
+                           for e in serve_engine.ENTRIES},
+                          eng.compile_count())
+    assert counts["cuda"] == counts["cpu"]
+    assert counts["cuda"][1] > 0
 
 
 def test_compile_count_grows_only_at_a_new_horizon_length(cuda):
@@ -805,19 +828,19 @@ def test_compile_count_grows_only_at_a_new_horizon_length(cuda):
 
     eng.model.decode_horizon = counted
     eng.start()
-    assert calls == {1: 1} and eng.compile_count() == 0       # warm-up
+    assert calls == {1: 1} and eng.graph_count() == 0         # warm-up
     seen = []
 
     def check(n):
         seen.append(n)
-        assert eng.compile_count() == len(set(seen))
+        assert eng.graph_count() == len(set(seen))
 
     first = _horizon_run(eng, check)
-    captured = eng.compile_count()
+    captured = eng.graph_count()
     assert 1 <= captured <= eng.decode_horizon
     assert len(seen) > captured                                # replays
     again = _horizon_run(eng, check)
-    assert eng.compile_count() == captured
+    assert eng.graph_count() == captured
     assert again[0] == first[0]
     assert calls == collections.Counter(set(seen)) + collections.Counter(
         {1: 1})
@@ -887,7 +910,7 @@ def test_handoff_into_a_graph_engine_serves_the_eager_tokens(cuda, arch,
         runs[eager] = _outputs(eng.run())
         torch.cuda.synchronize()
         assert eng.stats["prefills"] == 0
-        assert eng.compile_count() >= (0 if eager else 1)
+        assert eng.graph_count() >= (0 if eager else 1)
     assert runs[False] == runs[True]
     assert len(runs[False]) == 11
 
@@ -1025,13 +1048,13 @@ def test_fleet_on_card_matches_cpu(cuda, arch, levels, n_workers, kw):
     first = tree_leaves(engines[0].params)
     assert all(a is b for e in engines[1:]
                for a, b in zip(tree_leaves(e.params), first))
-    assert all(0 <= e.compile_count() <= e.decode_horizon for e in engines)
-    assert sum(e.compile_count() for e in engines) >= 1
+    assert all(0 <= e.graph_count() <= e.decode_horizon for e in engines)
+    assert sum(e.graph_count() for e in engines) >= 1
     keys = {w.compile_probe()[0] for w in client.workers}
     assert len(keys) == len({id(e.group) for e in engines})
     assert rep.metrics.total("exec.jit_compiles") == sum(
-        g.captures for g in {id(e.group): e.group
-                             for e in engines}.values())
+        g.compile_count() for g in {id(e.group): e.group
+                                    for e in engines}.values())
 
 
 def test_shared_pool_interleaved_replays_equal_each_engines_eager_body(
@@ -1080,7 +1103,7 @@ def test_shared_pool_interleaved_replays_equal_each_engines_eager_body(
                     pool = eng.group._pool
     torch.cuda.synchronize()
     assert pool is not None and a.group._pool == pool
-    assert a.compile_count() >= 1 and b.compile_count() >= 1
-    assert a.group.captures >= a.compile_count() + b.compile_count()
+    assert a.graph_count() >= 1 and b.graph_count() >= 1
+    assert a.group.captures >= a.graph_count() + b.graph_count()
     assert _outputs(a.done) == eager["a"]
     assert _outputs(b.done) == eager["b"]

@@ -14,7 +14,7 @@ and hold it to what capture depends on and to the reference:
 * the tokens, admission order, admission steps and retirement steps equal
   a live ``repro`` run at fp32 (the ``_reference`` helpers of
   ``test_torch_engine.py`` and ``test_torch_recurrent_engine.py``);
-* ``compile_count()`` is 0 (nothing is captured on the CPU) and the
+* ``graph_count()`` is 0 (nothing is captured on the CPU) and the
   kernels' launch counters are untouched.
 
 The engine's other writers are held to the same addresses: KV handoff
@@ -113,7 +113,7 @@ def test_horizon_body_keeps_its_buffers_and_serves_the_reference(
     for key in ("decode_steps", "decode_calls", "slot_steps",
                 "busy_slot_steps"):
         assert eng.stats[key] == jstats[key], key
-    assert eng.compile_count() == 0
+    assert eng.graph_count() == 0
     assert (fa_ops.LAUNCHES, rglru_ops.LAUNCHES) == launches
 
 
@@ -170,7 +170,7 @@ def test_handoff_export_evacuate_and_regroup_keep_the_buffers(arch, pages):
     again = {r.rid: list(r.output) for r in eng.run()[n_done:]}
     assert _addresses(eng) == fixed
     assert again == _reference(arch, 4, pages)[0][0]
-    assert eng.compile_count() == 0 and eng.stats["regroups"] == 1
+    assert eng.graph_count() == 0 and eng.stats["regroups"] == 1
 
 
 #: the router's writers into an engine, as ``EngineWorker`` methods
@@ -248,4 +248,4 @@ def test_fleet_writers_keep_every_engines_buffers(arch, run, monkeypatch):
     if run == "2P+2D":
         assert calls.get("admit_handoff", 0) > 24
         assert calls.get("admit_retry_prefill", 0) > 0
-    assert all(w.engine.compile_count() == 0 for w in self_fleet)
+    assert all(w.engine.graph_count() == 0 for w in self_fleet)

@@ -60,6 +60,13 @@ def test_importing_every_module_loads_no_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(modules) >= 25
+    # the planner slice's modules are in the scan
+    assert {"repro_torch.tune", "repro_torch.tune.space",
+            "repro_torch.tune.pareto", "repro_torch.tune.evaluate",
+            "repro_torch.tune.search", "repro_torch.tune.repository",
+            "repro_torch.launch.tune", "repro_torch.core.ibsim.costmodel",
+            "repro_torch.core.ibsim.engine",
+            "repro_torch.core.ibsim.benchmark"} <= set(modules)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():

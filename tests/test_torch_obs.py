@@ -8,9 +8,8 @@ reference's (``repro.obs``), live.
 * A single-engine ``connect(obs=enabled_obs())`` run (CPU, fp32, the
   parity tests' weights and requests) exports the reference's trace JSON
   byte for byte, and its metrics export equals the reference's in every
-  series but one: ``engine.jit_compiles``, which counts the reference's
-  jit cache entries and the port's horizon graphs (0 on the CPU, where
-  nothing is captured).
+  series, ``engine.jit_compiles`` included: both count the jit
+  specializations of the engine's exec group, from cleared caches.
 * The launcher's ``--trace-out`` / ``--metrics-out`` write a trace the
   port's validator accepts and the registry's JSON.
 """
@@ -35,6 +34,7 @@ from repro_torch.core.plan import SharingVector as TVector
 from repro_torch.obs.trace import (PID_FLEET, PID_REQUESTS, PID_RESOURCES,
                                    TID_ROUTER)
 from tests import test_torch_engine as qwen2
+from tests.test_torch_fleet import clear_caches
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -161,8 +161,10 @@ def test_noop_surfaces_are_inert():
 
 def _observed_run(side, horizon, pages):
     """connect(obs=enabled_obs()) on the parity tests' weights, plan and
-    requests; -> (trace JSON, metrics export, client)."""
+    requests, from cleared caches; -> (trace JSON, metrics export,
+    client)."""
     jcfg, tcfg, jparams, tparams = qwen2._served()
+    clear_caches(side)
     if side == "repro":
         obs = jobs.enabled_obs()
         client = jserve.connect(
@@ -192,14 +194,15 @@ def test_single_engine_run_exports_the_reference_trace_and_metrics(
     spans = [e for e in json.loads(t_trace)["traceEvents"]
              if e["ph"] == "b" and e["name"] == "request"]
     assert len(spans) == len(qwen2._specs())
-    # the one named exception: jit cache entries against horizon graphs
-    j_compiles = j_metrics["metrics"].pop("engine.jit_compiles")
-    t_compiles = t_metrics["metrics"].pop("engine.jit_compiles")
+    # the jit specializations too: both count the exec group's
+    j_compiles = j_metrics["metrics"]["engine.jit_compiles"]
+    t_compiles = t_metrics["metrics"]["engine.jit_compiles"]
     assert t_metrics == j_metrics
     assert [row["labels"] for row in t_compiles] == \
         [row["labels"] for row in j_compiles]
-    assert t_compiles[0]["value"] == client.engine.compile_count() == 0
-    assert j_compiles[0]["value"] > 0
+    assert t_compiles[0]["value"] == client.engine.compile_count() == \
+        j_compiles[0]["value"] > 0
+    assert client.engine.graph_count() == 0
     eng = client.engine
     for name in ("decode_steps", "host_syncs", "prefills", "slot_steps",
                  "busy_slot_steps", "regroups"):

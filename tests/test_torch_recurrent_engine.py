@@ -153,6 +153,6 @@ def test_trace_serve_windows_on_the_cpu():
     # both in the eager body's window; the first round is then drained
     assert decode["decode_steps"] == 6 and decode["batch"] == N_SLOTS
     assert graph["decode_steps"] == unprofiled["decode_steps"] == 0
-    assert graph["graphs"] == eng.compile_count() == 0
+    assert graph["graphs"] == eng.graph_count() == 0
     assert admission["device_idle_share"] is None
     assert sorted(len(r.output) for r in eng.done) == [6] * 5

@@ -8,9 +8,9 @@ the two repairs of ``connect``'s validation.
   contiguous engine raises ``ValueError``; an exec-group regroup records
   the group id and keeps the engine's horizon graphs.
 * ``replan`` between runs serves the reference's tokens and transitions;
-  it refuses structural fields and layout flips (``ValueError``), planner
-  hints (``NotImplementedError``, the planner slice) and the wave
-  executor (``ValueError``); ``replan(None, adaptive=True)`` turns the
+  it refuses structural fields and layout flips (``ValueError``) and the
+  wave executor (``ValueError``); planner hints re-resolve against the
+  client's fleet shape, and ``replan(None, adaptive=True)`` turns the
   controller on for the next run, as in the reference.
 * An unknown ``placement`` and faults, recovery or migrations on a
   single-engine plan raise ``ValueError``, as in the reference; a fleet
@@ -23,17 +23,19 @@ import pytest
 
 from repro import serve as jserve
 from repro.core.plan import EndpointPlan as JPlan
-from repro.core.plan import Hints
+from repro.core.plan import Hints as JHints
 from repro.core.plan import SharingVector as JVector
 from repro.serve.engine import ContinuousEngine as JEngine
 from repro.serve.engine import Request as JRequest
 from repro_torch import serve as tserve
 from repro_torch.core.plan import EndpointPlan as TPlan
+from repro_torch.core.plan import Hints as THints
 from repro_torch.core.plan import SharingVector as TVector
 from repro_torch.obs import enabled_obs
 from repro_torch.serve.engine import ContinuousEngine as TEngine
 from repro_torch.serve.engine import Request as TRequest
 from tests import test_torch_engine as qwen2
+from tests.test_torch_fleet import clear_caches
 
 SIDES = {"repro": (JEngine, JRequest, JPlan, JVector),
          "port": (TEngine, TRequest, TPlan, TVector)}
@@ -101,22 +103,31 @@ def test_page_regroup_on_a_contiguous_engine_raises():
 def test_exec_group_regroup_keeps_the_graphs():
     """The reference swaps the engine onto another group's executables;
     the port records the group id and keeps its horizon graphs (its
-    ``HorizonGraphs`` object, so ``compile_count()`` does not move)."""
+    ``HorizonGraphs`` object, so ``graph_count()`` does not move).  Both
+    count the engine's specializations in the new group from then on."""
+    for side in SIDES:
+        clear_caches(side)
     j_eng, t_eng = _engine("repro", False, 4), _engine("port", False, 4)
     t_eng.start()
-    graphs, count = t_eng._horizons, t_eng.compile_count()
+    graphs, count = t_eng._horizons, t_eng.graph_count()
     for eng in (j_eng, t_eng):
         assert eng.exec_group == 0
         assert eng.regroup(exec_group=3)
         assert eng.exec_group == 3 and eng.stats["regroups"] == 1
         assert not eng.regroup(exec_group=3)
-    assert t_eng._horizons is graphs and t_eng.compile_count() == count
+    assert t_eng._horizons is graphs and t_eng.graph_count() == count
     assert dataclasses.asdict(t_eng.plan.vector) == \
         dataclasses.asdict(j_eng.plan.vector)
+    for side, eng in (("repro", j_eng), ("port", t_eng)):
+        for rid, (prompt, max_new, eos) in enumerate(qwen2._specs()):
+            eng.submit(SIDES[side][1](rid=rid, prompt=prompt,
+                                      max_new_tokens=max_new, eos_id=eos))
+        eng.run()
+    assert t_eng.compile_count() == j_eng.compile_count() > 0
     obs = enabled_obs()
     t_eng.publish_metrics(obs.metrics, worker=0)
     assert obs.metrics.value("engine.jit_compiles", axis="execs", group=3,
-                             worker=0) == count
+                             worker=0) == t_eng.compile_count()
 
 
 def _clients(plan_spec=None, **overrides):
@@ -187,12 +198,14 @@ def test_replan_refuses_layout_flips_and_unknown_placement():
 
 
 def test_replan_hints_and_adaptive_name_their_slices():
-    """Hints still name the planner slice; an adaptive replan lands on
-    the plan, and the next run's controller starts from it, as in the
-    reference."""
+    """Hints re-resolve to the reference's plan (the fleet shape kept);
+    an adaptive replan lands on the plan, and the next run's controller
+    starts from it, as in the reference."""
     j_client, client = _clients()
-    with pytest.raises(NotImplementedError, match="planner slice"):
-        client.replan(Hints(latency_target_ms=10.0))
+    new = client.replan(THints(latency_target_ms=10.0))
+    j_new = j_client.replan(JHints(latency_target_ms=10.0))
+    assert dataclasses.asdict(new) == dataclasses.asdict(j_new)
+    assert new.vector == client.plan.vector == TVector(1, 1, 4, 1)
     for c in (j_client, client):
         plan = c.replan(None, adaptive=True, adapt_window_ns=60_000.0)
         assert plan.adaptive and c.plan.adaptive
