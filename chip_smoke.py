@@ -25,7 +25,9 @@ Phases (any failure exits non-zero, without the final result line):
    and 30, edge lengths, lengths on both sides of the split kernel's
    chunk edges and the long prompts' lengths, and for the paged kernel a
    fragmented page table with sentinels over a tight pool, contiguous =
-   paged bit for bit at both caches; then the
+   paged bit for bit at both caches, and at granite-moe-1b-a400m's
+   heads (Hkv 8, G 2, dh 64) and deepseek-moe-16b's (Hkv 16, G 1, dh 128,
+   where bf16 takes the SIMT body); then the
    RG-LRU scan against its plain version at T in {1, 7, 2048, 3001}, C in
    {64, 2560}, fp32 and bf16, with ``a`` near 0.999 so the carry grows,
    and on strided views, two calls equal bit for bit; then the flash
@@ -34,7 +36,8 @@ Phases (any failure exits non-zero, without the final result line):
    softcap 10), at the lengths 1, 7,
    1023, 1024, 1500 and 3001, at lengths on both sides of the tensor-core
    body's tiles (15 to 129), a window ending mid-tile, and on strided
-   views, fp32 and bf16 (bf16 held to its limit per case and per row);
+   views, fp32 and bf16 (bf16 held to its limit per case and per row),
+   and at granite's and deepseek's batched admission (8 x 512);
 4. qwen2-0.5b at full width (24 layers, random weights from
    ``torch.Generator`` seed 0) served through ``repro_torch.serve.connect``
    with a contiguous and with a paged (pages=4) cache: 16 requests, every
@@ -140,6 +143,30 @@ Phases (any failure exits non-zero, without the final result line):
    against the analytic one: tok/s over host time (a first and a second
    run), graphs per engine, specializations per exec group, graph pool
    bytes and ``max_memory_reserved``.
+
+14. (run before 12, whose JSON line takes its kernel cases) the MoE and
+   xLSTM families, random weights from ``torch.Generator`` seed 0 drawn
+   on the card: granite-moe-1b-a400m at full width and depth (24
+   layers, 32 experts top-8, 1.33B parameters; 8 slots, max_len 1024,
+   horizon 8, phase 4's 16 prompt lengths, 64 new tokens), bf16
+   contiguous (then a second run on the same engine) and paged, equal on
+   every token, and at fp32 through graphs and the eager body, equal on
+   every token; deepseek-moe-16b at full width cut to its first 4
+   layers (dense layer 0, then 3 MoE layers of 2 shared + 64 routed
+   experts, top-6), 8 requests of 32 tokens, contiguous = paged in
+   bf16; xlstm-1.3b at full width and depth (42 mLSTM and 6 sLSTM
+   layers) on prompts of 64 to 960 tokens (the per-token scan, the
+   chunkwise core at 512 and 768, the bf16 stream without chunking at
+   960), exact-length admission, 32 new tokens, bf16, then fp32 graphs
+   = eager body, no kernel launch; every run gated on each request's
+   tokens and on its launches (ragged or paged = layers x steps
+   launched, flash = attention layers x prefills); tok/s,
+   ``graph_count()``, ``compile_count()``, ``max_memory_allocated`` and
+   ``max_memory_reserved`` printed.  Then the three smoke configs at
+   fp32, card = CPU on every token (MoE contiguous and paged), and the
+   decode pair and the flash kernel at granite's and deepseek's decode
+   caches and admission shapes, checked against their plain versions
+   and timed beside SDPA (added to phase 12's cases).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
@@ -436,13 +463,18 @@ def _paged_table(gen, cur, max_pages, ps, n_pages):
     return pt
 
 
-#: check_kernels' shapes: (Smax, lengths); the edges of the short cache,
-#: both sides of the decode kernels' first chunk edges, and qwen2-0.5b's
-#: long-prompt lengths (1039 to 4016 mid-decode) up to a retired row
+#: check_kernels' shapes: (Smax, (Hkv, G, dh), lengths); the edges of the
+#: short cache, both sides of the decode kernels' first chunk edges, and
+#: qwen2-0.5b's long-prompt lengths (1039 to 4016 mid-decode) up to a
+#: retired row; then granite-moe-1b-a400m's heads (8 / 2, dh 64) and
+#: deepseek-moe-16b's (16 / 1, dh 128: the bf16 SIMT body) at batch 8
 DECODE_CHECKED = (
-    (SMAX, (0, SMAX - 1, SMAX, 5000, 1, 63, 64, 700, 127, 128, 129, 255)),
-    (LONG_MAX_LEN, (127, 128, 129, 1039, 2047, 2048, 3000, 4016, 4095,
-                    5000)),
+    (SMAX, (HKV, G, DH),
+     (0, SMAX - 1, SMAX, 5000, 1, 63, 64, 700, 127, 128, 129, 255)),
+    (LONG_MAX_LEN, (HKV, G, DH),
+     (127, 128, 129, 1039, 2047, 2048, 3000, 4016, 4095, 5000)),
+    (SMAX, (8, 2, 64), (0, 63, 64, 129, 300, 544, 1023, 5000)),
+    (SMAX, (16, 1, 128), (0, 63, 64, 129, 300, 544, 1023, 5000)),
 )
 
 
@@ -452,7 +484,7 @@ def check_kernels() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     ps = 64
     bad = []
-    for smax, cur_list in DECODE_CHECKED:
+    for smax, (hkv, g, dh), cur_list in DECODE_CHECKED:
         b = len(cur_list)
         cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
         max_pages = smax // ps
@@ -460,15 +492,15 @@ def check_kernels() -> None:
         n_pages = sum(c // ps + 1 for c in cur_list if c < smax) + 2
         pt = _paged_table(gen, cur_list, max_pages, ps, n_pages)
         chunk, n_split = ops.decode_splits(smax)
-        log(f"decode kernels at Smax {smax} ({n_split} splits of {chunk} "
-            f"keys), lengths {list(cur_list)}:")
+        log(f"decode kernels at Smax {smax}, Hkv {hkv}, G {g}, dh {dh} "
+            f"({n_split} splits of {chunk} keys), lengths {list(cur_list)}:")
         for dtype in (torch.float32, torch.bfloat16):
             for softcap in (0.0, 30.0):
-                q = _rand(gen, (b, 1, HKV * G, DH), dtype)
-                k = _rand(gen, (b, smax, HKV, DH), dtype)
-                v = _rand(gen, (b, smax, HKV, DH), dtype)
-                kp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
-                vp = _rand(gen, (n_pages, ps, HKV, DH), dtype)
+                q = _rand(gen, (b, 1, hkv * g, dh), dtype)
+                k = _rand(gen, (b, smax, hkv, dh), dtype)
+                v = _rand(gen, (b, smax, hkv, dh), dtype)
+                kp = _rand(gen, (n_pages, ps, hkv, dh), dtype)
+                vp = _rand(gen, (n_pages, ps, hkv, dh), dtype)
                 for name, out, expect in (
                         ("ragged_decode",
                          ops.flash_decode_attention(q, k, v, cur,
@@ -492,18 +524,18 @@ def check_kernels() -> None:
                         + (f"; {n_pages}-page pool, fragmented table with "
                            f"sentinels" if name == "paged_decode" else ""))
                     if not (err <= tol and rows <= BF16_REL_TOL):
-                        bad.append((name, smax, str(dtype), softcap, err,
-                                    rows))
+                        bad.append((name, smax, hkv, g, dh, str(dtype),
+                                    softcap, err, rows))
                 # the same cache, contiguous and scattered over pages: both
                 # kernels cut and walk keys the same way, so outputs are
                 # equal
                 perm = torch.randperm(b * max_pages, generator=gen,
                                       device="cuda")
-                pages = torch.empty((b * max_pages, ps, HKV, DH),
+                pages = torch.empty((b * max_pages, ps, hkv, dh),
                                     dtype=dtype, device="cuda")
-                pages[perm] = k.reshape(b * max_pages, ps, HKV, DH)
+                pages[perm] = k.reshape(b * max_pages, ps, hkv, dh)
                 vpages = torch.empty_like(pages)
-                vpages[perm] = v.reshape(b * max_pages, ps, HKV, DH)
+                vpages[perm] = v.reshape(b * max_pages, ps, hkv, dh)
                 table = perm.reshape(b, max_pages).int()
                 a = ops.flash_decode_attention(q, k, v, cur, softcap=softcap)
                 c = ops.paged_flash_decode_attention(q, pages, vpages, table,
@@ -601,6 +633,8 @@ FLASH_CASES = [
     (1, 300, 300, 10, 1, 256, True, 100, 0.0),     # window ends mid-tile
     (2, 100, 257, 14, 2, 64, False, 0, 0.0),       # full, Sk != Sq
     (1, 257, 100, 14, 2, 64, False, 0, 0.0),
+    (8, 512, 512, 16, 8, 64, True, 0, 0.0),        # granite's admission
+    (8, 512, 512, 16, 16, 128, True, 0, 0.0),      # deepseek's admission
 ]
 
 
@@ -927,18 +961,46 @@ def _expected_launches(cfg, eng, launched: int, prefills=None) -> dict:
     """Each prefill launches the flash kernel in every attention layer and
     the RG-LRU scan in every RG-LRU layer; each decode step launched, the
     decode kernel in every layer of a stack that can page (a rolling
-    window takes plain decode attention, as in the reference).
-    ``prefills`` defaults to every prefill the engine ran."""
-    n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    window takes plain decode attention, as in the reference; an xLSTM
+    stack has no attention and launches no kernel).  ``prefills``
+    defaults to every prefill the engine ran."""
+    kinds = cfg.pattern_for(cfg.n_layers)
+    n_rglru = sum(k == "rglru" for k in kinds)
+    n_attn = sum(k in ("attn", "attn_local") for k in kinds)
     if prefills is None:
         prefills = eng.stats["prefills"]
     expect = {"ragged_decode": 0, "paged_decode": 0,
-              "flash_attention": (cfg.n_layers - n_rglru) * prefills,
+              "flash_attention": n_attn * prefills,
               "rglru_scan": n_rglru * prefills}
     if eng.model.supports_paged_cache:
         expect["paged_decode" if eng.paged else "ragged_decode"] = \
             cfg.n_layers * launched
     return expect
+
+
+def _second_run(name, eng, prompts, max_new, first, bad) -> float:
+    """The same requests again on the same graph engine: the same horizon
+    lengths, so no capture; the tokens must be ``first``.  -> decode
+    tok/s."""
+    from repro_torch.serve.engine import Request
+    graphs, n_done = eng.graph_count(), len(eng.done)
+    tok0 = eng.stats["busy_slot_steps"]
+    for i, (prompt, n) in enumerate(zip(prompts, max_new)):
+        eng.submit(Request(rid=len(prompts) + i, prompt=prompt,
+                           max_new_tokens=n))
+    seconds = _timed_steps(eng)
+    again = [r.output for r in sorted(eng.run()[n_done:],
+                                      key=lambda r: r.rid)]
+    del eng.step
+    tok = eng.stats["busy_slot_steps"] - tok0
+    log(f"  a second run on the same engine: decode "
+        f"{tok / seconds[0]:.1f} tok/s ({tok} tokens in "
+        f"{seconds[0]:.3f}s), {eng.graph_count()} graphs, "
+        f"tokens equal to the first run's: {again == first}")
+    if eng.graph_count() != graphs or again != first:
+        bad.append(f"{name}: the second run captured or served other "
+                   f"tokens")
+    return tok / seconds[0]
 
 
 def graph_vs_eager(prompts, cfg, params, card: str) -> dict:
@@ -957,7 +1019,6 @@ def graph_vs_eager(prompts, cfg, params, card: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    from repro_torch.serve.engine import Request
 
     def recurrentgemma():
         rg_cfg = get_config("recurrentgemma-2b")
@@ -999,25 +1060,8 @@ def graph_vs_eager(prompts, cfg, params, card: str) -> dict:
                 if not 1 <= graphs <= HORIZON:
                     bad.append(f"{name}: {graphs} graphs, not 1 to "
                                f"{HORIZON}")
-                # the same requests again on the same engine: the same
-                # horizon lengths, so no capture
-                n_done, tok0 = len(eng.done), tok
-                for i, prompt in enumerate(pr):
-                    eng.submit(Request(rid=len(pr) + i, prompt=prompt,
-                                       max_new_tokens=MAX_NEW))
-                seconds = _timed_steps(eng)
-                again = [r.output for r in sorted(eng.run()[n_done:],
-                                                  key=lambda r: r.rid)]
-                del eng.step
-                tok = eng.stats["busy_slot_steps"] - tok0
-                rates[name]["graph, no capture"] = tok / seconds[0]
-                log(f"  a second run on the same engine: decode "
-                    f"{tok / seconds[0]:.1f} tok/s ({tok} tokens in "
-                    f"{seconds[0]:.3f}s), {eng.graph_count()} graphs, "
-                    f"tokens equal to the first run's: {again == outs[mode]}")
-                if eng.graph_count() != graphs or again != outs[mode]:
-                    bad.append(f"{name}: the second run captured or served "
-                               f"other tokens")
+                rates[name]["graph, no capture"] = _second_run(
+                    name, eng, pr, [MAX_NEW] * len(pr), outs[mode], bad)
             del eng
         same = sum(x == y for a, b in zip(outs["graph"], outs["eager"])
                    for x, y in zip(a, b))
@@ -1877,23 +1921,25 @@ def _time_graph_ms(fn, n_layers, iters=10, warmup=1):
     return start.elapsed_time(end) / (iters * n_layers)
 
 
-def _decode_case(shape, smax, cur_list, launches, n_layers=24):
+def _decode_case(shape, smax, cur_list, launches, n_layers=24,
+                 heads=(HKV, G, DH)):
     """Both decode kernels at one cache shape: bf16, B rows at lengths
-    ``cur_list``, one cache per layer (contiguous, and the same values
-    scattered over scrambled pages of 64); each checked layer by layer
-    against its plain version (per case and per row), then timed eagerly
-    and as a CUDA graph beside its plain version and SDPA.  -> {kernel:
-    case dict}."""
+    ``cur_list``, ``heads`` = (Hkv, G, dh), one cache per layer
+    (contiguous, and the same values scattered over scrambled pages of
+    64); each checked layer by layer against its plain version (per case
+    and per row), then timed eagerly and as a CUDA graph beside its plain
+    version and SDPA.  -> {kernel: case dict}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
+    hkv, g, dh = heads
     b = len(cur_list)
     gen = torch.Generator(device="cuda").manual_seed(smax)
     dt = torch.bfloat16
     cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
-    q = _rand(gen, (b, 1, HKV * G, DH), dt)
-    caches = [(_rand(gen, (b, smax, HKV, DH), dt),
-               _rand(gen, (b, smax, HKV, DH), dt)) for _ in range(n_layers)]
+    q = _rand(gen, (b, 1, hkv * g, dh), dt)
+    caches = [(_rand(gen, (b, smax, hkv, dh), dt),
+               _rand(gen, (b, smax, hkv, dh), dt)) for _ in range(n_layers)]
     ps = 64
     max_pages = smax // ps
     perm = torch.randperm(b * max_pages, generator=gen, device="cuda")
@@ -1901,12 +1947,12 @@ def _decode_case(shape, smax, cur_list, launches, n_layers=24):
     paged = []
     for k, v in caches:
         kp, vp = torch.empty_like(k), torch.empty_like(v)
-        kp.view(b * max_pages, ps, HKV, DH)[perm] = \
-            k.reshape(b * max_pages, ps, HKV, DH)
-        vp.view(b * max_pages, ps, HKV, DH)[perm] = \
-            v.reshape(b * max_pages, ps, HKV, DH)
-        paged.append((kp.view(b * max_pages, ps, HKV, DH),
-                      vp.view(b * max_pages, ps, HKV, DH)))
+        kp.view(b * max_pages, ps, hkv, dh)[perm] = \
+            k.reshape(b * max_pages, ps, hkv, dh)
+        vp.view(b * max_pages, ps, hkv, dh)[perm] = \
+            v.reshape(b * max_pages, ps, hkv, dh)
+        paged.append((kp.view(b * max_pages, ps, hkv, dh),
+                      vp.view(b * max_pages, ps, hkv, dh)))
     mask = (torch.arange(smax, device="cuda")[None, :]
             <= cur[:, None])[:, None, None, :]
     qs = q.transpose(1, 2)                         # (B, Hq, 1, dh)
@@ -1918,9 +1964,9 @@ def _decode_case(shape, smax, cur_list, launches, n_layers=24):
 
     n_keys = sum(min(c, smax - 1) + 1 for c in cur_list)
     elt = q.element_size()
-    kv_bytes = 2 * n_keys * HKV * DH * elt
+    kv_bytes = 2 * n_keys * hkv * dh * elt
     io_bytes = 2 * q.numel() * elt + cur.numel() * 4
-    flops = 4 * n_keys * HKV * G * DH
+    flops = 4 * n_keys * hkv * g * dh
     chunk, n_split = ops.decode_splits(smax)
     cases = {}
     for name in ("ragged_decode", "paged_decode"):
@@ -2080,82 +2126,89 @@ FLASH_TIMED = (("qwen2-0.5b", 1, 4096, 14, 2, 64, 0),
                ("recurrentgemma-2b", 1, 3500, 10, 1, 256, 2048))
 
 
-def time_flash(launches: dict):
-    """The flash kernel at each main path's prefill shape (``FLASH_TIMED``,
-    four inputs in turn), against its plain version and
-    ``scaled_dot_product_attention`` (``is_causal``, or a boolean mask
-    for the window).  ``launches``: the kernel's count on each path's
-    main-path run.  The entry's own numbers are the first shape's;
-    ``cases`` holds every shape's."""
+def _flash_case(gen, model, b, s, hq, hkv, dh, window, launches,
+                n_inputs=4):
+    """The flash kernel at one prefill shape, bf16, causal, ``n_inputs``
+    inputs in turn: checked against its plain version (per case and per
+    row), timed beside it and ``scaled_dot_product_attention``
+    (``is_causal``, or a boolean mask for the window).  -> case dict."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
+    dt = torch.bfloat16
+    inputs = [(_rand(gen, (b, s, hq, dh), dt),
+               _rand(gen, (b, s, hkv, dh), dt),
+               _rand(gen, (b, s, hkv, dh), dt)) for _ in range(n_inputs)]
+    kw = dict(causal=True, window=window)
+    pos = torch.arange(s, device="cuda")
+    allowed = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] > pos[:, None] - window)
+
+    def kern(i):
+        return ops.flash_attention(*inputs[i], **kw)
+
+    def plain(i):
+        return ref.flash_attention_ref(*inputs[i], **kw)
+
+    def sdpa(i):
+        q, k, v = (t.transpose(1, 2) for t in inputs[i])
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=allowed if window else None,
+            is_causal=not window, enable_gqa=True).transpose(1, 2)
+
+    err, tol, rows = 0.0, float("inf"), 0.0
+    for i in range(n_inputs):
+        expect, out = plain(i), kern(i)
+        e = (out.float() - expect.float()).abs().max().item()
+        r = row_error(out, expect)
+        err, tol = max(err, e), min(tol, tolerance(expect))
+        rows = max(rows, r)
+        if not (e <= tolerance(expect) and r <= BF16_REL_TOL):
+            raise AssertionError(f"flash_attention at {model}'s shape: "
+                                 f"err {e} (limit {tolerance(expect)}), "
+                                 f"row-scaled err {r} (limit "
+                                 f"{BF16_REL_TOL})")
+        del expect, out
+    lib_err = (sdpa(0).float() - plain(0).float()).abs().max().item()
+    ms = _time_ms(kern, n_inputs)
+    plain_ms = _time_ms(plain, n_inputs, iters=2)
+    lib_ms = _time_ms(sdpa, n_inputs)
+    pairs = b * sum(min(t + 1, window) if window else t + 1
+                    for t in range(s))
+    flops = 4 * pairs * dh * hq
+    io_bytes = 2 * b * (s * hq * dh + s * hkv * dh) * dt.itemsize
+    t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    case = dict(model=model, shape=f"({b}, {s}, {hq}/{hkv}, {dh}) causal"
+                f"{f' window {window}' if window else ''} bf16",
+                launches=launches, max_abs_err=err, max_row_rel_err=rows,
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib_ms)
+    log(f"flash_attention at {case['shape']} ({model}): {ms * 1e3:.1f} "
+        f"us/call, bound {case['bound_ms'] * 1e3:.1f} us "
+        f"({case['bound_by']}: {flops / 1e9:.2f} GFLOP over "
+        f"{pairs} unmasked pairs at the bf16 tensor-core peak; "
+        f"{flops / FP32_FLOPS_PER_S * 1e6:.0f} us at the fp32 FMA peak; "
+        f"{io_bytes / 1e6:.1f} MB), plain {plain_ms * 1e3:.1f} us, SDPA "
+        f"{lib_ms * 1e3:.1f} us (max abs err vs plain {lib_err:.3e}), "
+        f"max abs err {err:.3e} (tolerance {tol:.3e} or more), "
+        f"row-scaled err {rows:.4f} (limit {BF16_REL_TOL:.4f}); "
+        f"launches on the main path {launches}")
+    return case
+
+
+def time_flash(launches: dict):
+    """The flash kernel at each main path's prefill shape (``FLASH_TIMED``,
+    four inputs in turn), against its plain version and
+    ``scaled_dot_product_attention``.  ``launches``: the kernel's count
+    on each path's main-path run.  The entry's own numbers are the first
+    shape's; ``cases`` holds every shape's."""
+    import torch
     gen = torch.Generator(device="cuda").manual_seed(5)
-    dt, n_inputs = torch.bfloat16, 4
-    cases = []
-    for model, b, s, hq, hkv, dh, window in FLASH_TIMED:
-        inputs = [(_rand(gen, (b, s, hq, dh), dt),
-                   _rand(gen, (b, s, hkv, dh), dt),
-                   _rand(gen, (b, s, hkv, dh), dt)) for _ in range(n_inputs)]
-        kw = dict(causal=True, window=window)
-        pos = torch.arange(s, device="cuda")
-        allowed = (pos[None, :] <= pos[:, None]) & \
-            (pos[None, :] > pos[:, None] - window)
-
-        def kern(i):
-            return ops.flash_attention(*inputs[i], **kw)
-
-        def plain(i):
-            return ref.flash_attention_ref(*inputs[i], **kw)
-
-        def sdpa(i):
-            q, k, v = (t.transpose(1, 2) for t in inputs[i])
-            return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=allowed if window else None,
-                is_causal=not window, enable_gqa=True).transpose(1, 2)
-
-        err, tol, rows = 0.0, float("inf"), 0.0
-        for i in range(n_inputs):
-            expect, out = plain(i), kern(i)
-            e = (out.float() - expect.float()).abs().max().item()
-            r = row_error(out, expect)
-            err, tol = max(err, e), min(tol, tolerance(expect))
-            rows = max(rows, r)
-            if not (e <= tolerance(expect) and r <= BF16_REL_TOL):
-                raise AssertionError(f"flash_attention at {model}'s shape: "
-                                     f"err {e} (limit {tolerance(expect)}), "
-                                     f"row-scaled err {r} (limit "
-                                     f"{BF16_REL_TOL})")
-            del expect, out
-        lib_err = (sdpa(0).float() - plain(0).float()).abs().max().item()
-        ms = _time_ms(kern, n_inputs)
-        plain_ms = _time_ms(plain, n_inputs, iters=2)
-        lib_ms = _time_ms(sdpa, n_inputs)
-        pairs = b * sum(min(t + 1, window) if window else t + 1
-                        for t in range(s))
-        flops = 4 * pairs * dh * hq
-        io_bytes = 2 * b * (s * hq * dh + s * hkv * dh) * dt.itemsize
-        t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS_PER_S * 1e3
-        case = dict(model=model, shape=f"({b}, {s}, {hq}/{hkv}, {dh}) causal"
-                    f"{f' window {window}' if window else ''} bf16",
-                    launches=launches[model], max_abs_err=err,
-                    max_row_rel_err=rows, ms=ms,
-                    plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=lib_ms)
-        cases.append(case)
-        log(f"flash_attention at {case['shape']} ({model}): {ms * 1e3:.1f} "
-            f"us/call, bound {case['bound_ms'] * 1e3:.1f} us "
-            f"({case['bound_by']}: {flops / 1e9:.2f} GFLOP over "
-            f"{pairs} unmasked pairs at the bf16 tensor-core peak; "
-            f"{flops / FP32_FLOPS_PER_S * 1e6:.0f} us at the fp32 FMA peak; "
-            f"{io_bytes / 1e6:.1f} MB), plain {plain_ms * 1e3:.1f} us, SDPA "
-            f"{lib_ms * 1e3:.1f} us (max abs err vs plain {lib_err:.3e}), "
-            f"max abs err {err:.3e} (tolerance {tol:.3e} or more), "
-            f"row-scaled err {rows:.4f} (limit {BF16_REL_TOL:.4f}); "
-            f"launches on the main path {launches[model]}")
-        del inputs
+    cases = [_flash_case(gen, model, b, s, hq, hkv, dh, window,
+                         launches[model])
+             for model, b, s, hq, hkv, dh, window in FLASH_TIMED]
     top = {k: v for k, v in cases[0].items()
            if k not in ("model", "shape", "max_row_rel_err")}
     return dict(name="flash_attention", **KERNELS["flash_attention"], **top,
@@ -2443,6 +2496,229 @@ def serve_planner(cfg, params, first_prompts, card: str) -> dict:
     return result
 
 
+# ----- phase 14 --------------------------------------------------------------
+
+#: deepseek-moe-16b at full width, cut to its first 4 layers: the dense
+#: layer 0 (d_ff 10944), then 3 MoE layers (2 shared + 64 routed
+#: experts, top-6, d_expert 1408)
+DEEPSEEK_LAYERS = 4
+FAMILY_REQUESTS, FAMILY_MAX_NEW = 8, 32
+#: xlstm-1.3b's prompts: the per-token scan below 512 tokens (the fp32
+#: stream), the chunkwise core at 512 and 768 (the bf16 stream), and 960
+#: on the bf16 stream without chunking (960 + 32 < max_len 1024)
+XLSTM_PROMPTS = (64, 100, 200, 300, 450, 512, 768, 960)
+
+
+def _family_run(name, cfg, params, prompts, pages, max_new, card, bad,
+                eager=False):
+    """One ``serve_once`` of ``cfg`` on the card (graph replays, or the
+    eager body), gated on every request's tokens and on the launches its
+    prefills and launched horizon steps account for; -> a dict of the
+    run (outputs, engine, launch counts, decode tok/s, peak GiB)."""
+    import torch
+    live = fresh_peak()
+    horizons = []
+    outs, eng, counts, dec_s, wall = serve_once(
+        cfg, params, prompts, pages, "cuda", max_new=max_new, eager=eager,
+        horizons=horizons)
+    expect = _expected_launches(cfg, eng, sum(horizons))
+    tok = eng.stats["busy_slot_steps"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    log(f"{name}: {len(outs)} requests, {sum(map(len, outs))} tokens, "
+        f"{eng.stats['prefills']} prefills (buckets "
+        f"{list(eng.prefill_buckets) or 'off'}, paged {eng.paged}), "
+        f"{eng.stats['decode_steps']} decode steps, {sum(horizons)} "
+        f"launched; decode {tok / dec_s:.1f} tok/s ({tok} tokens in "
+        f"{dec_s:.3f}s; first run, captures included), wall {wall:.2f}s; "
+        f"graph_count() {eng.graph_count()}, compile_count() "
+        f"{eng.compile_count()}; max_memory_allocated {peak:.2f} GiB, "
+        f"max_memory_reserved {reserved:.2f} GiB ({live:.2f} GiB live "
+        f"before); launches {counts} (expected {expect}); on {card}")
+    if not all(len(o) == n and all(0 <= t < cfg.vocab for t in o)
+               for o, n in zip(outs, max_new)):
+        bad.append(f"{name}: a request came back without its tokens")
+    if counts != expect:
+        bad.append(f"{name}: launches {counts} != {expect}")
+    if not eager and not 1 <= eng.graph_count() <= HORIZON:
+        bad.append(f"{name}: {eng.graph_count()} graphs")
+    return dict(outs=outs, eng=eng, counts=counts, tok_s=tok / dec_s,
+                peak=peak, reserved=reserved)
+
+
+def _gate_equal(what, a, b, card, bad) -> None:
+    same = sum(x == y for p, q in zip(a, b) for x, y in zip(p, q))
+    total = sum(map(len, a))
+    log(f"{what}: {same}/{total} tokens agree; on {card}")
+    if a != b:
+        bad.append(f"{what}: tokens differ")
+
+
+def _family_weights(cfg, card):
+    """Full-width weights drawn on the card from ``torch.Generator``
+    seed 0 (fp32)."""
+    import torch
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {model.n_params() / 1e6:.1f}M params, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"drawn on the card in {time.perf_counter() - t0:.1f}s")
+    return params
+
+
+def _serve_moe(cfg, n_requests, max_new, card, bad, fp32_graph_vs_eager):
+    """bf16 contiguous (then a second run on the same engine) and paged,
+    equal on every token; with ``fp32_graph_vs_eager`` the fp32 weights
+    through graphs and through the eager body, equal on every token.
+    -> the runs' numbers."""
+    params = _family_weights(cfg, card)
+    prompts = _prompts(cfg.vocab, seed=9)[:n_requests]
+    budgets = [max_new] * len(prompts)
+    runs = {"lengths": [len(p) for p in prompts]}
+    for pages in (False, True):
+        name = f"{cfg.name} bf16 {'paged' if pages else 'contiguous'}"
+        run = _family_run(name, cfg, params, prompts, pages, budgets, card,
+                          bad)
+        if not pages:
+            run["tok_s_again"] = _second_run(name, run["eng"], prompts,
+                                             budgets, run["outs"], bad)
+        del run["eng"]
+        runs["paged" if pages else "contiguous"] = run
+    _gate_equal(f"{cfg.name} bf16 contiguous vs paged",
+                runs["contiguous"]["outs"], runs["paged"]["outs"], card, bad)
+    if fp32_graph_vs_eager:
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        for eager in (False, True):
+            run = _family_run(f"{cfg.name} fp32 "
+                              f"{'eager body' if eager else 'graphs'}",
+                              cfg32, params, prompts, False, budgets, card,
+                              bad, eager=eager)
+            del run["eng"]
+            runs["fp32 eager" if eager else "fp32 graphs"] = run
+        _gate_equal(f"{cfg.name} fp32 graphs vs eager body",
+                    runs["fp32 graphs"]["outs"], runs["fp32 eager"]["outs"],
+                    card, bad)
+    del params
+    return runs
+
+
+def _serve_xlstm(card, bad):
+    """xlstm-1.3b at full width and depth: exact-length admission of the
+    8 prompts (per-token scan, chunkwise core, the bf16 switch), 32 new
+    tokens each; bf16 through graphs, then fp32 through graphs and the
+    eager body, equal on every token.  No kernel launches: the stack has
+    no attention."""
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-1.3b")
+    params = _family_weights(cfg, card)
+    prompts = _rg_prompts(cfg.vocab, XLSTM_PROMPTS, seed=10)
+    budgets = [FAMILY_MAX_NEW] * len(prompts)
+    runs = {}
+    for name, c, eager in (
+            ("bf16", cfg, False),
+            ("fp32 graphs", dataclasses.replace(cfg,
+                                                compute_dtype="float32"),
+             False),
+            ("fp32 eager", dataclasses.replace(cfg,
+                                               compute_dtype="float32"),
+             True)):
+        run = _family_run(f"xlstm-1.3b {name}", c, params, prompts, False,
+                          budgets, card, bad, eager=eager)
+        if run["eng"].prefill_buckets or run["eng"].paged or \
+                sum(run["counts"].values()):
+            bad.append(f"xlstm-1.3b {name}: buckets, pages or launches")
+        del run["eng"]
+        runs[name] = run
+    _gate_equal("xlstm-1.3b fp32 graphs vs eager body",
+                runs["fp32 graphs"]["outs"], runs["fp32 eager"]["outs"],
+                card, bad)
+    del params
+    return runs
+
+
+def _family_smoke_card_vs_cpu(card, bad) -> None:
+    """The three smoke configs at fp32 on the card (kernels, graphs) and
+    on the CPU (plain versions): 12 prompts of 4 to 47 tokens, 16 new
+    each, max_len 64; the MoE ones contiguous and paged."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    for arch in ("granite-moe-1b-a400m", "deepseek-moe-16b", "xlstm-1.3b"):
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        lengths = np.random.default_rng(11).integers(4, 48, size=12)
+        prompts = _rg_prompts(cfg.vocab, [int(n) for n in lengths], seed=12)
+        for pages in ((False, True) if cfg.moe else (False,)):
+            card_out, eng, counts, _, _ = serve_once(
+                cfg, params, prompts, pages, "cuda", max_new=[16] * 12,
+                max_len=64)
+            cpu, _, cpu_counts, _, _ = serve_once(
+                cfg, params, prompts, pages, "cpu", max_new=[16] * 12,
+                max_len=64)
+            name = f"{arch} smoke fp32 {'paged' if pages else 'contiguous'}"
+            _gate_equal(f"{name}: card (launches {counts}) vs CPU (plain "
+                        f"versions, launches {cpu_counts})", card_out, cpu,
+                        card, bad)
+            if sum(cpu_counts.values()) or counts["flash_attention"] != \
+                    _expected_launches(cfg, eng, 0)["flash_attention"]:
+                bad.append(f"{name}: launch counts")
+            del eng
+
+
+def serve_moe_xlstm(card: str) -> dict:
+    """Phase 14: the MoE and xLSTM families at full width (see the
+    module docstring), the smoke configs card against CPU, and the
+    attention kernels at the new heads (granite's and deepseek's decode
+    caches and batched admissions), each checked against its plain
+    version and timed.  -> the runs' numbers and the kernel cases."""
+    from repro_torch.configs import get_config
+    import torch
+    bad = []
+    granite = _serve_moe(get_config("granite-moe-1b-a400m"), N_REQUESTS,
+                         MAX_NEW, card, bad, fp32_graph_vs_eager=True)
+    cut = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              n_layers=DEEPSEEK_LAYERS)
+    log(f"deepseek-moe-16b: full width, cut to its first "
+        f"{DEEPSEEK_LAYERS} of 28 layers (dense layer 0, then "
+        f"{DEEPSEEK_LAYERS - 1} MoE layers)")
+    deepseek = _serve_moe(cut, FAMILY_REQUESTS, FAMILY_MAX_NEW, card, bad,
+                          fp32_graph_vs_eager=False)
+    xlstm = _serve_xlstm(card, bad)
+    _family_smoke_card_vs_cpu(card, bad)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    decode, flash = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for model, runs, max_new, n_layers, heads in (
+            ("granite-moe-1b-a400m", granite, MAX_NEW, 24, (8, 2, 64)),
+            ("deepseek-moe-16b", deepseek, FAMILY_MAX_NEW, DEEPSEEK_LAYERS,
+             (16, 1, 128))):
+        lengths = runs["lengths"][:B]
+        launches = {"ragged_decode": runs["contiguous"]["counts"][
+                        "ragged_decode"],
+                    "paged_decode": runs["paged"]["counts"]["paged_decode"]}
+        decode[model] = _decode_case(
+            f"B={B}, Smax={SMAX}, Hkv={heads[0]}, G={heads[1]}, "
+            f"dh={heads[2]} bf16 ({model})", SMAX,
+            [n + max_new // 2 for n in lengths], launches,
+            n_layers=n_layers, heads=heads)
+        # the first admission round: B prompts padded to their bucket
+        bucket = 8
+        while bucket < max(lengths):
+            bucket *= 2
+        hq = heads[0] * heads[1]
+        flash.append(_flash_case(
+            gen, model, B, bucket, hq, heads[0], heads[2], 0,
+            runs["contiguous"]["counts"]["flash_attention"]))
+    return {"granite": granite, "deepseek": deepseek, "xlstm": xlstm,
+            "decode": decode, "flash": flash}
+
+
 def main() -> int:
     try:
         import torch
@@ -2505,6 +2781,9 @@ def main() -> int:
                         *served, card)
         fleet = phase("serve qwen2-0.5b through a fleet of 4 at full width",
                       serve_fleet, served[2], served[3], served[1], card)
+    family = phase("the MoE and xLSTM families at full width: "
+                   "granite-moe-1b-a400m, deepseek-moe-16b (4 layers), "
+                   "xlstm-1.3b", serve_moe_xlstm, card)
     kernels = rg_kernel = flash = None
     if served is not None and long is not None:
         runs, prompts = served[:2]
@@ -2523,9 +2802,15 @@ def main() -> int:
                         "repository, adaptive", serve_planner, served[2],
                         served[3], served[1], card)
     if failed or kernels is None or rg_kernel is None or flash is None \
-            or surface is None or fleet is None or planner is None:
+            or surface is None or fleet is None or planner is None \
+            or family is None:
         log(f"FAILED phases: {failed}")
         return 1
+    # the kernels at phase 14's shapes join their entries' cases
+    for entry in kernels:
+        entry["cases"] += [family["decode"][m][entry["name"]]
+                           for m in family["decode"]]
+    flash["cases"] += family["flash"]
     log(f"decode tok/s: qwen2-0.5b contiguous "
         f"{served[0]['ragged_decode']['tok_s']:.1f}, paged "
         f"{served[0]['paged_decode']['tok_s']:.1f}, long prompts contiguous "
@@ -2551,6 +2836,13 @@ def main() -> int:
         "second run): " + "; ".join(
             f"{name} {r['tok_s']:.1f}, {r['tok_s_again']:.1f}"
             for name, r in planner.items()) + f"; on {card}")
+    log("phase 14, decode tok/s (first run with captures; second run): "
+        + "; ".join(
+            f"{m} {name} {r['tok_s']:.1f}"
+            + (f", {r['tok_s_again']:.1f}" if "tok_s_again" in r else "")
+            for m in ("granite", "deepseek", "xlstm")
+            for name, r in family[m].items() if name != "lengths")
+        + f"; on {card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,15 @@ fleet of engines behind the fabric router.
       --slots 8 --max-len 4096 --decode-horizon 8 --requests 8 \
       --prompt-len 1024 --mixed-lengths --max-new 64
 
+  # the MoE family (bucketed admission, paged caches) and xLSTM
+  # (mLSTM / sLSTM cells: exact-length admission, no pages)
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \
+      --slots 8 --max-len 1024 --decode-horizon 8 --pages 4 \
+      --requests 16 --prompt-len 256 --mixed-lengths --max-new 64
+  python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke \
+      --device cpu --max-len 64 --requests 8 --prompt-len 20 \
+      --decode-horizon 4 --mixed-lengths
+
   # the legacy wave engine; a Chrome/Perfetto trace and the metrics
   # registry of a continuous run
   python -m repro_torch.launch.serve --arch qwen2-0.5b --engine wave \

@@ -5,6 +5,8 @@
         --max-len 1024 --prompt-lens 64,128,256,512,64,128,256,512
     python -m repro_torch.launch.trace_serve --arch qwen2-0.5b \
         --max-len 4096 --prompt-lens 1023,1024,1025,1500,2047,2049,3000,4000
+    python -m repro_torch.launch.trace_serve --arch granite-moe-1b-a400m \
+        --max-len 1024 --prompt-lens 64,128,256,512,64,128,256,512
 
 Draws full-width weights on the card (``torch.Generator`` seed 0), warms
 the engine up (kernel builds, library handles) on two short requests,

@@ -52,6 +52,16 @@ def apply_norm(p, x, kind: str):
     return xhat * p["scale"].to(dt) + p["bias"].to(dt)
 
 
+def rms_group_norm(x, scale, n_groups: int):
+    """Head-wise group RMS norm (the xLSTM cells): statistics, the
+    normalised values and the scale in fp32, cast back to x.dtype."""
+    b, s, d = x.shape
+    xf = x.float().reshape(b, s, n_groups, d // n_groups)
+    var = xf.square().mean(-1, keepdim=True)
+    out = (xf * torch.rsqrt(var + NORM_EPS)).reshape(b, s, d)
+    return (out * scale.float()).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # Rotary position embeddings (RoPE / partial RoPE / M-RoPE)
 # --------------------------------------------------------------------------

@@ -47,7 +47,7 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = make_plan(cfg, cross=cfg.is_encdec)
-        check_slice(cfg, self.plan)
+        check_slice(cfg)
         self.dtype = compute_dtype(cfg)
 
     # ----- parameters ----------------------------------------------------

@@ -1,4 +1,5 @@
-"""Block stack: layer planning, attention and RG-LRU blocks, caches.
+"""Block stack: layer planning, attention, RG-LRU and xLSTM blocks, dense
+and MoE FFNs, caches.
 
 ``LayerPlan`` splits the per-layer block descriptors into an unrolled
 prefix and a periodic body exactly as ``repro.models.transformer`` does,
@@ -12,7 +13,8 @@ the prefill writes the prompt rows, and a decode step writes exactly one
 row per batch row, through views, so the stacked cache itself changes.
 Sliding-window layers of sub-quadratic models keep a ROLLING cache of
 ``min(max_len, window)`` rows, position ``t`` at row ``t % window``, as
-the reference does; RG-LRU blocks keep their conv and fp32 state.
+the reference does; RG-LRU and xLSTM blocks keep their conv and fp32
+state, written in place too.
 """
 
 from __future__ import annotations
@@ -31,9 +33,13 @@ from repro_torch.models.attention import (attention_decode,
                                           project_out, project_q)
 from repro_torch.models.layers import (apply_ffn, apply_norm, apply_rope,
                                        compute_dtype, ffn_specs, norm_specs)
+from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import stack_specs, tree_map
 from repro_torch.models.recurrent import (apply_rglru_block,
                                           init_rglru_cache, rglru_specs)
+from repro_torch.models.xlstm import (apply_mlstm_block, apply_slstm_block,
+                                      init_mlstm_cache, init_slstm_cache,
+                                      mlstm_specs, slstm_specs)
 
 ATTN_KINDS = ("attn", "attn_local")
 
@@ -98,42 +104,41 @@ def make_plan(cfg: ArchConfig, n_layers: Optional[int] = None,
 # Per-block specs / apply
 # --------------------------------------------------------------------------
 
-_LATER_SLICE = {
-    "mlstm": "the xLSTM slice (mLSTM / sLSTM blocks)",
-    "slstm": "the xLSTM slice (mLSTM / sLSTM blocks)",
+def check_slice(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError for what the port does not serve yet:
+    encoder-decoder models and embeddings input, which the reference's
+    serving engine refuses too, arrive with the training slice."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: embeddings input arrives with the training slice")
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models arrive with the training "
+            f"slice")
+
+
+#: the recurrent blocks by kind (also their param and cache keys): specs,
+#: apply (updates its cache in place and takes ``step_active``), cache
+_RECURRENT = {
+    "rglru": (rglru_specs, apply_rglru_block, init_rglru_cache),
+    "mlstm": (mlstm_specs, apply_mlstm_block, init_mlstm_cache),
+    "slstm": (slstm_specs, apply_slstm_block, init_slstm_cache),
 }
 
 
-def check_slice(cfg: ArchConfig, plan: LayerPlan) -> None:
-    """Raise NotImplementedError for what this slice does not serve."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: embeddings input arrives with the qwen2-vl slice")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models arrive with the "
-            f"seamless (enc-dec) slice")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs arrive with the granite/deepseek MoE "
-            f"slice")
-    for d in plan.prefix + plan.period:
-        if d.kind in _LATER_SLICE:
-            raise NotImplementedError(
-                f"{cfg.name}: {d.kind} blocks arrive with "
-                f"{_LATER_SLICE[d.kind]}")
-
-
 def block_specs(cfg: ArchConfig, desc: LayerDesc):
-    """An attention or RG-LRU block with a dense FFN (``check_slice`` has
-    refused every other kind)."""
     s = {"norm1": norm_specs(cfg)}
     if desc.kind in ATTN_KINDS:
         s["attn"] = attn_specs(cfg)
     else:
-        s["rglru"] = rglru_specs(cfg)
-    s["norm2"] = norm_specs(cfg)
-    s["ffn"] = ffn_specs(cfg)
+        s[desc.kind] = _RECURRENT[desc.kind][0](cfg)
+    if desc.ffn != "none":
+        s["norm2"] = norm_specs(cfg)
+        if desc.ffn == "moe":
+            s["moe"] = moe_specs(cfg)
+        else:        # dense; dense0 is the MoE stack's dense layer 0
+            s["ffn"] = ffn_specs(cfg, d_ff=(cfg.moe.dense_d_ff or cfg.d_ff)
+                                 if desc.ffn == "dense0" else None)
     return s
 
 
@@ -302,20 +307,25 @@ def _self_attention(p, h, ctx: BlockCtx, window: int, cache):
 
 
 def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
-    """One attention or RG-LRU block with a dense FFN; -> x.  ``cache``
-    (the block's ``{"attn": {"k", "v"}}`` or ``{"rglru": {"conv", "h"}}``)
-    is updated in place."""
+    """One block (attention or a recurrent cell, then its FFN: dense, MoE
+    or none); -> x.  ``cache`` (the block's ``{"attn": {"k", "v"}}``, or
+    ``{kind: state}`` for a recurrent block) is updated in place.  The
+    MoE FFN's auxiliary loss is discarded, as serving does."""
     cfg = ctx.cfg
     h = apply_norm(p["norm1"], x, cfg.norm)
+    key = "attn" if desc.kind in ATTN_KINDS else desc.kind
+    sub = cache[key] if cache is not None else None
     if desc.kind in ATTN_KINDS:
         window = cfg.attn_window if desc.kind == "attn_local" else 0
-        x = x + _self_attention(p["attn"], h, ctx, window,
-                                cache["attn"] if cache is not None else None)
+        x = x + _self_attention(p["attn"], h, ctx, window, sub)
     else:
-        x = x + apply_rglru_block(
-            p["rglru"], h, cfg, cache["rglru"] if cache is not None else None,
-            step_active=ctx.step_active)
+        x = x + _RECURRENT[desc.kind][1](p[desc.kind], h, cfg, sub,
+                                         step_active=ctx.step_active)
+    if desc.ffn == "none":
+        return x
     h2 = apply_norm(p["norm2"], x, cfg.norm)
+    if desc.ffn == "moe":
+        return x + apply_moe(p["moe"], h2, cfg)[0]
     return x + apply_ffn(p["ffn"], h2, cfg.act)
 
 
@@ -342,7 +352,8 @@ def init_stack_cache(cfg: ArchConfig, plan: LayerPlan, batch: int,
 
     def one(desc: LayerDesc, lead=()):
         if desc.kind not in ATTN_KINDS:
-            return {"rglru": init_rglru_cache(cfg, batch, lead, device)}
+            return {desc.kind: _RECURRENT[desc.kind][2](cfg, batch, lead,
+                                                        device)}
         window = cfg.attn_window if desc.kind == "attn_local" else 0
         if page_size > 0:
             assert not (window_cache and window), \

@@ -27,8 +27,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import EndpointPlan as TPlan
 from repro_torch.core.plan import SharingVector as TVector
 from repro_torch.models.params import from_numpy
+from repro_torch.serve import engine as t_engine
 from repro_torch.serve.engine import ContinuousEngine as TEngine
 from repro_torch.serve.engine import Request as TRequest
+from repro.serve import engine as j_engine
+from tests.test_torch_model import port_config
 
 N_SLOTS, MAX_LEN = 3, 48
 
@@ -199,3 +202,93 @@ def test_unported_executors_raise():
     wave = tserve.connect(tcfg, params=tparams, executor="wave",
                           device="cpu")
     assert wave.executor == "wave"
+
+
+# ----- the MoE and xLSTM families (granite, deepseek, xlstm) -----------------
+
+@functools.lru_cache(maxsize=None)
+def served(arch):
+    """(JAX cfg, port cfg, JAX params, port params) of ``arch``'s smoke
+    config at fp32 compute."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch),
+                               compute_dtype="float32")
+    jparams = JModel(jcfg).init(jax.random.PRNGKey(0))
+    return (jcfg, port_config(jcfg), jparams,
+            from_numpy(jax.device_get(jparams)))
+
+
+def family_specs():
+    """Nine requests: prompts of 5 to 20 tokens in three lengths (the
+    reference compiles an exact-length prefill per length), budgets of 1
+    to 12, one EOS id, and a prompt of 40 that reaches the cache edge of
+    48 (bonus token)."""
+    rng = np.random.default_rng(21)
+    out = []
+    for i, n in enumerate((5, 20, 12, 20, 5, 12, 5, 12)):
+        prompt = rng.integers(1, 128, size=n).astype(np.int32)
+        eos = int(rng.integers(0, 128)) if i == 2 else None
+        out.append((prompt, int(rng.integers(1, 13)), eos))
+    out.append((np.arange(1, 41, dtype=np.int32), 20, None))
+    return out
+
+
+def clear_caches(side: str) -> None:
+    """Forget the side's exec groups and their specializations, so that a
+    client's compile counts start from 0 whatever ran before it in the
+    process: jax's caches and the reference's shared steps, or the
+    port's exec groups."""
+    if side == "repro":
+        jax.clear_caches()
+        j_engine._shared_steps_cached.cache_clear()
+    else:
+        t_engine.clear_exec_groups()
+
+
+def connect_family(side, arch, horizon, pages=False, buckets="auto",
+                   specs=None):
+    """``family_specs`` (or ``specs``) through ``side``'s connect() at
+    fp32 from cleared caches -> (tokens by rid, compile_count(), the
+    engine)."""
+    jcfg, tcfg, jparams, tparams = served(arch)
+    ref = side == "repro"
+    plan_cls, vec_cls = (JPlan, JVector) if ref else (TPlan, TVector)
+    plan = dataclasses.replace(_plan(plan_cls, vec_cls, horizon, pages),
+                               prefill_buckets=buckets)
+    clear_caches(side)
+    client = (jserve.connect(jcfg, plan, params=jparams) if ref else
+              tserve.connect(tcfg, plan, params=tparams, device="cpu"))
+    for prompt, max_new, eos in specs or family_specs():
+        client.submit(prompt, max_new_tokens=max_new, eos_id=eos)
+    out = client.run()
+    return out, client.engine.compile_count(), client.engine
+
+
+def test_moe_bucketed_prefill_is_not_exact_length_in_either_package():
+    """A limit of the reference, kept by the port: MoE capacity is per
+    padded row (``_capacity(s)`` with ``s`` the bucket length), so padding
+    tokens compete with a prompt's own for expert slots.  The probe:
+    granite's smoke config at fp32 through ``connect(cfg,
+    "mpi_everywhere", max_len=64)`` (4 slots), four prompts of 5, 17, 29
+    and 47 tokens (numpy seed 1), 6 new tokens each.  A bucketed round
+    pads every prompt to 64; exact-length admission prefills each alone.
+    The two give different tokens, and the port's tokens equal the
+    reference's on both paths."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 128, n).astype(np.int32)
+               for n in (5, 17, 29, 47)]
+    jcfg, tcfg, jparams, tparams = served("granite-moe-1b-a400m")
+    runs = {}
+    for buckets in ("auto", None):
+        for side in ("repro", "port"):
+            clear_caches(side)
+            client = (jserve.connect(jcfg, "mpi_everywhere", params=jparams,
+                                     max_len=64, prefill_buckets=buckets)
+                      if side == "repro" else
+                      tserve.connect(tcfg, "mpi_everywhere", params=tparams,
+                                     max_len=64, prefill_buckets=buckets,
+                                     device="cpu"))
+            runs[side, buckets] = client.generate(prompts, 6)
+        assert runs["port", buckets] == runs["repro", buckets]
+    differ = [a != b for a, b in zip(runs["repro", "auto"],
+                                     runs["repro", None])]
+    assert differ == [False, True, True, True]

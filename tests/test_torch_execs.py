@@ -8,8 +8,10 @@ the reference's side, ``clear_exec_groups()`` on the port's).  It drives
 engines of one exec group through qwen2-0.5b's smoke config, contiguous
 and paged: bucketed admission at several buckets, horizons at K 1, 2 and
 4, exact-length admission, ``prefill_only`` and KV handoff admission,
-``export_session`` into a second engine, the wave engine and
-recurrentgemma-2b's exact-length prefills.  After every call, each
+``export_session`` into a second engine, the wave engine,
+recurrentgemma-2b's exact-length prefills, granite-moe-1b-a400m's
+bucketed admission (contiguous and paged) and xlstm-1.3b's exact-length
+prefills.  After every call, each
 entry's count in the port (``ExecGroup.count``) equals the reference's
 ``_cache_size()`` of that executable, and ``compile_count()`` equals the
 reference's.  The counts are the same on the CPU and on the card.
@@ -163,7 +165,28 @@ def session(side: Side) -> list:
         for rid, p in enumerate(_prompts(17, (5, 20, 12, 5))):
             eng.submit(side.request(rid, p, 6))
         _drive(side, eng, log, f"recurrentgemma K{k}")
+    # granite (MoE): bucketed admission, contiguous and paged
+    for k, pages in ((1, 1), (4, 4)):
+        eng = side.engine(granite, decode_horizon=k, pages=pages,
+                          page_budget=8 if pages > 1 else None)
+        for rid, p in enumerate(_prompts(19, (3, 12, 20, 40))):
+            eng.submit(side.request(rid, p, 5))
+        _drive(side, eng, log, f"granite K{k} p{pages}")
+    # xlstm: exact-length prefills at every length, K 1 and 4
+    for k in (1, 4):
+        eng = side.engine(xlstm, decode_horizon=k)
+        for rid, p in enumerate(_prompts(23, (5, 20, 12, 5))):
+            eng.submit(side.request(rid, p, 6))
+        _drive(side, eng, log, f"xlstm K{k}")
     return log
+
+
+def granite():
+    return qwen2.served("granite-moe-1b-a400m")
+
+
+def xlstm():
+    return qwen2.served("xlstm-1.3b")
 
 
 def test_compile_counts_match_the_reference_after_every_call():

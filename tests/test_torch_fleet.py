@@ -22,21 +22,19 @@ import dataclasses
 import functools
 import json
 
-import jax
 import numpy as np
 import pytest
 
 from repro import serve as jserve
 from repro.core.plan import SharingVector as JVector
-from repro.serve import engine as j_engine
 from repro.serve.fabric import canonical_bursty_trace, canonical_faulted_trace
 from repro.serve.recovery import RecoveryPolicy as JPolicy
 from repro_torch import serve as tserve
 from repro_torch.core.plan import SharingVector as TVector
-from repro_torch.serve import engine as t_engine
 from repro_torch.serve.recovery import RecoveryPolicy as TPolicy
 from tests import test_torch_engine as qwen2
 from tests import test_torch_recurrent_engine as rgemma
+from tests.test_torch_engine import clear_caches
 from tests.test_torch_fabric import report_dict
 
 MAX_LEN, N_SLOTS, N_WORKERS = 64, 4, 4
@@ -59,18 +57,6 @@ def prompt_of(vocab: int, arrival) -> np.ndarray:
     """The golden suite's prompt of an arrival, keyed by its rid."""
     rng = np.random.default_rng(arrival.rid)
     return rng.integers(1, vocab, size=arrival.prompt_len).astype(np.int32)
-
-
-def clear_caches(side: str) -> None:
-    """Forget the side's exec groups and their specializations, so that a
-    client's compile counts start from 0 whatever ran before it in the
-    process: jax's caches and the reference's shared steps, or the
-    port's exec groups."""
-    if side == "repro":
-        jax.clear_caches()
-        j_engine._shared_steps_cached.cache_clear()
-    else:
-        t_engine.clear_exec_groups()
 
 
 def connect(side: str, arch: str, levels: tuple, **kw):

@@ -200,6 +200,21 @@ def test_decode_kernels_read_unaligned_views(cuda, dtype):
     _assert_rows_within_tolerance(out, expect)
 
 
+def _capture(fn):
+    """``fn()`` warmed up on a side stream, then captured in a CUDA
+    graph; -> (the graph, what the captured call returned: the buffers
+    each replay writes)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                        # warm up off capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
 def test_decode_wrappers_replay_in_a_cuda_graph(cuda):
     """One call of each decode wrapper captured in a CUDA graph: with cur
     changed in place, a replay gives the eager result bit for bit, so the
@@ -218,14 +233,7 @@ def test_decode_wrappers_replay_in_a_cuda_graph(cuda):
     }
     for name, call in calls.items():
         cur.copy_(torch.tensor([3, 100, 500, 1000]))
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            call()                                  # warm up off capture
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = call()
+        graph, out = _capture(call)
         for lengths in ([1023, 0, 128, 5000], [127, 129, 700, 1]):
             cur.copy_(torch.tensor(lengths))
             graph.replay()
@@ -330,6 +338,99 @@ def test_engine_on_card_matches_cpu(cuda, pages):
         assert got == expect, (horizon, buckets)
 
 
+@pytest.mark.parametrize("arch,pages", [
+    ("granite-moe-1b-a400m", False), ("granite-moe-1b-a400m", True),
+    ("deepseek-moe-16b", False), ("xlstm-1.3b", False)],
+    ids=["granite-contiguous", "granite-pages4", "deepseek-contiguous",
+         "xlstm"])
+def test_family_engine_on_card_matches_cpu(cuda, arch, pages):
+    """The MoE and xLSTM smoke configs at fp32: the per-step loop, the
+    fused horizon and (MoE) exact-length admission serve the CPU's
+    tokens, admission order and retirement steps."""
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    for horizon, buckets in ((1, "auto"), (4, "auto"), (4, None)):
+        expect = _engine_run(cfg, params, "cpu", horizon, pages, buckets)
+        got = _engine_run(cfg, params, "cuda", horizon, pages, buckets)
+        assert got == expect, (horizon, buckets)
+
+
+@pytest.mark.parametrize("arch,s", [("granite-moe-1b-a400m", 1),
+                                    ("granite-moe-1b-a400m", 64),
+                                    ("deepseek-moe-16b", 1)])
+def test_moe_dispatch_replays_in_a_cuda_graph(cuda, arch, s):
+    """``apply_moe`` (routing, the sort-based dispatch with its capacity,
+    the expert products and the ordered combine) captured in a graph:
+    replays on new inputs equal the eager call bit for bit, and the eager
+    call equals the CPU's at fp32."""
+    from repro_torch.models.moe import apply_moe
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.transformer import make_plan
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
+    assert make_plan(cfg).period[0].ffn == "moe"
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    p_cpu = tree_map(lambda a: a[0], params["decoder"]["body"][0]["moe"],
+                     torch.is_tensor)
+    p = tree_map(lambda a: a.cuda(), p_cpu, torch.is_tensor)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((8, s, cfg.d_model), generator=gen).cuda()
+    graph, (y, y_aux) = _capture(lambda: apply_moe(p, x, cfg))
+    for seed in (2, 3):
+        x.copy_(torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager, aux = apply_moe(p, x, cfg)
+        assert torch.equal(y, eager) and torch.equal(y_aux, aux)
+        cpu, cpu_aux = apply_moe(p_cpu, x.cpu(), cfg)
+        torch.testing.assert_close(eager.cpu(), cpu, rtol=0, atol=1e-5)
+        torch.testing.assert_close(aux.cpu(), cpu_aux, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_step_replays_in_a_cuda_graph(cuda, kind):
+    """One xLSTM decode step (T = 1) captured in a graph on a static
+    cache: each replay advances the state in place as the eager step
+    does, bit for bit, and a replay with ``step_active`` off leaves
+    every leaf as it was."""
+    from repro_torch.models import xlstm
+    cfg = dataclasses.replace(get_smoke_config("xlstm-1.3b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    pos = 0 if kind == "mlstm" else 3
+    p = {k: v[0].cuda() for k, v in
+         params["decoder"]["body"][pos][kind].items()}
+    init = getattr(xlstm, f"init_{kind}_cache")
+    apply = getattr(xlstm, f"apply_{kind}_block")
+    gen = torch.Generator().manual_seed(4)
+    cache = init(cfg, 3, device="cuda")
+    apply(p, torch.randn((3, 9, cfg.d_model), generator=gen).cuda(), cfg,
+          cache)
+    twin = {k: v.clone() for k, v in cache.items()}
+    x = torch.zeros((3, 1, cfg.d_model), device="cuda")
+    active = torch.ones((), dtype=torch.bool, device="cuda")
+    ptrs = [v.data_ptr() for v in cache.values()]
+    snapshot = {k: v.clone() for k, v in cache.items()}
+    graph, y = _capture(lambda: apply(p, x, cfg, cache, step_active=active))
+    for k, v in cache.items():     # warm-up and capture leave no trace
+        v.copy_(snapshot[k])
+    for seed in (5, 6):
+        x.copy_(torch.randn(x.shape, generator=torch.Generator().manual_seed(
+            seed)))
+        graph.replay()
+        eager = apply(p, x, cfg, twin, step_active=active)
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+        for k in cache:
+            assert torch.equal(cache[k], twin[k]), k
+    active.fill_(False)
+    before = {k: v.clone() for k, v in cache.items()}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(cache[k], before[k]) for k in cache)
+    assert [v.data_ptr() for v in cache.values()] == ptrs
+
+
 # ----- RG-LRU scan -------------------------------------------------------------
 
 def _rglru_inputs(gen, b, t, c, a_dtype, x_dtype):
@@ -411,14 +512,7 @@ def test_rglru_wrapper_replays_in_a_cuda_graph(cuda):
     scratch come from the shape alone)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     a, x = _rglru_inputs(gen, 1, 2048, 2560, torch.float32, torch.float32)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        rglru_ops.rglru_scan(a, x)                  # warm up off capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = rglru_ops.rglru_scan(a, x)
+    graph, out = _capture(lambda: rglru_ops.rglru_scan(a, x))
     for seed in (7, 8):
         new_a, new_x = _rglru_inputs(torch.Generator(
             device="cuda").manual_seed(seed), 1, 2048, 2560, torch.float32,
@@ -746,10 +840,11 @@ def _expected_launches(eng, steps):
     """Each decode step launched runs the decode kernel in every attention
     layer of a paging-capable stack; each prefill its prefill kernels."""
     cfg = eng.cfg
-    n_rglru = sum(k == "rglru" for k in cfg.pattern_for(cfg.n_layers))
+    kinds = cfg.pattern_for(cfg.n_layers)
+    n_rglru = sum(k == "rglru" for k in kinds)
+    n_attn = sum(k in ("attn", "attn_local") for k in kinds)
     expect = {"ragged_decode": 0, "paged_decode": 0,
-              "flash_attention": (cfg.n_layers - n_rglru)
-              * eng.stats["prefills"],
+              "flash_attention": n_attn * eng.stats["prefills"],
               "rglru_scan": n_rglru * eng.stats["prefills"]}
     if eng.model.supports_paged_cache:
         name = "paged_decode" if eng.paged else "ragged_decode"
@@ -768,7 +863,12 @@ def _static_buffers(eng):
 
 GRAPH_CASES = [pytest.param("qwen2-0.5b", False, id="qwen2-contiguous"),
                pytest.param("qwen2-0.5b", True, id="qwen2-pages4"),
-               pytest.param("recurrentgemma-2b", False, id="recurrentgemma")]
+               pytest.param("recurrentgemma-2b", False, id="recurrentgemma"),
+               pytest.param("granite-moe-1b-a400m", False,
+                            id="granite-contiguous"),
+               pytest.param("granite-moe-1b-a400m", True, id="granite-pages4"),
+               pytest.param("deepseek-moe-16b", True, id="deepseek-pages4"),
+               pytest.param("xlstm-1.3b", False, id="xlstm")]
 
 
 @pytest.mark.parametrize("arch,pages", GRAPH_CASES)

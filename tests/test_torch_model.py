@@ -21,14 +21,32 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models.model import Model as JModel
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.model import Model
 from repro_torch.models.params import (from_numpy, to_numpy, tree_leaves,
                                        tree_map)
 
 ARCHS = ["qwen2-0.5b", "smollm-360m"]
+#: every decoder-only token model with an attention stack: the dense ones
+#: (stablelm: partial rotary; internlm2) and the MoE ones (granite: top-2
+#: of 8, tied embeddings; deepseek: a dense layer 0, 2 shared experts)
+ATTN_ARCHS = ARCHS + ["stablelm-1.6b", "internlm2-1.8b",
+                      "granite-moe-1b-a400m", "deepseek-moe-16b"]
+#: the configs this file's model-level tests add for the MoE and xLSTM
+#: slice (and the two dense configs that had none)
+SERVED = ["granite-moe-1b-a400m", "deepseek-moe-16b", "xlstm-1.3b",
+          "stablelm-1.6b", "internlm2-1.8b"]
 LOGIT_ATOL = 1e-4
 CACHE_ATOL = 1e-5
+
+
+def port_config(jcfg) -> ArchConfig:
+    """The port's ArchConfig of a reference config: ``asdict`` turns the
+    nested ``MoEConfig`` into a dict, which is rebuilt here."""
+    fields = dataclasses.asdict(jcfg)
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    return ArchConfig(**fields)
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,7 +55,7 @@ def _pair(arch, dtype="float32"):
     jcfg = dataclasses.replace(jax_smoke_config(arch), compute_dtype=dtype)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
-    tm = Model(ArchConfig(**dataclasses.asdict(jcfg)), device="cpu")
+    tm = Model(port_config(jcfg), device="cpu")
     return jm, jp, tm, tm.prepare_params(from_numpy(jax.device_get(jp)))
 
 
@@ -71,10 +89,12 @@ def _random_caches(jm, tm, b, max_len, seed, **paged):
     return jc, tc
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_prefill_with_last_index(arch):
     """A padded batch with per-row last_index: logits and the filled
-    cache match, and each row equals its exact-length prefill."""
+    cache match, and each row equals its exact-length prefill (not for
+    MoE: capacity is per padded row, so padding can drop a real token's
+    expert, in the reference as here; ``test_torch_engine`` pins it)."""
     jm, jp, tm, tp = _pair(arch)
     rng = np.random.default_rng(0)
     lengths = np.array([3, 11, 16], np.int32)
@@ -91,6 +111,8 @@ def test_prefill_with_last_index(arch):
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
                                rtol=0, atol=LOGIT_ATOL)
     _assert_caches_close(tc, jc)
+    if tm.cfg.moe is not None:
+        return
     solo, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks[1:2, :11])},
                          tm.init_cache(1, 32))
     np.testing.assert_allclose(solo.numpy(), t_logits[1:2].numpy(),
@@ -98,7 +120,7 @@ def test_prefill_with_last_index(arch):
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["oracle", "kernel"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_decode_step_contiguous(arch, ragged):
     """Rows at idx 0, mid-cache and the last position (max_len-1), one
     row past the buffer (a retired slot), and one row's write masked
@@ -122,7 +144,7 @@ def test_decode_step_contiguous(arch, ragged):
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["oracle", "kernel"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_decode_step_paged(arch, ragged):
     """Scrambled page tables with sentinels: rows writing into their own
     pages (at idx 0 and at the table's last position), a retired row
@@ -175,8 +197,13 @@ def _horizon_inputs(jm, jp, tm, tp, remaining):
 
 @pytest.mark.parametrize("arch,horizon,remaining", [
     ("qwen2-0.5b", 1, [3, 9, 0]), ("qwen2-0.5b", 4, [3, 9, 0]),
-    ("qwen2-0.5b", 4, [1, 2, 0]), ("smollm-360m", 4, [3, 9, 0])],
-    ids=["qwen2-K1", "qwen2-K4", "qwen2-K4-early-exit", "smollm-K4"])
+    ("qwen2-0.5b", 4, [1, 2, 0]), ("smollm-360m", 4, [3, 9, 0]),
+    ("granite-moe-1b-a400m", 4, [3, 9, 0]),
+    ("deepseek-moe-16b", 4, [1, 2, 0]), ("xlstm-1.3b", 4, [3, 9, 0]),
+    ("xlstm-1.3b", 4, [1, 2, 0])],
+    ids=["qwen2-K1", "qwen2-K4",
+         "qwen2-K4-early-exit", "smollm-K4", "granite-K4",
+         "deepseek-K4-early-exit", "xlstm-K4", "xlstm-K4-early-exit"])
 def test_decode_horizon(arch, horizon, remaining):
     """Traces (tokens, liveness, bonus tokens at the cache edge — row 1
     reaches the edge of max_len=24 — and retirements), the carried state and the
@@ -232,6 +259,84 @@ def test_bf16_logits_within_stated_tolerance():
         j = np.asarray(j)
         np.testing.assert_allclose(t.numpy(), j, rtol=0,
                                    atol=2e-2 * np.abs(j).max())
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_prefill_then_decode_matches_reference(arch):
+    """Exact-length prefill of 3 rows into a per-slot cache, then three
+    decode steps at the rows' own positions: logits, every cache leaf
+    (attention k/v, or the xLSTM conv and cell states) and idx after
+    every call."""
+    jm, jp, tm, tp = _pair(arch)
+    toks = np.random.default_rng(6).integers(1, 128, (3, 12)).astype(
+        np.int32)
+    j_logits, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                              jm.init_cache(3, 24, per_slot=True))
+    t_logits, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                              tm.init_cache(3, 24, per_slot=True))
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                               rtol=0, atol=LOGIT_ATOL)
+    _assert_caches_close(tc, jc)
+    nxt = np.asarray(j_logits).argmax(-1).astype(np.int32)
+    for _ in range(3):
+        j_logits, jc = jm.decode_step(jp, jc, tokens=jnp.asarray(nxt))
+        t_logits, tc = tm.decode_step(tp, tc, torch.from_numpy(nxt))
+        np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
+                                   rtol=0, atol=LOGIT_ATOL)
+        _assert_caches_close(tc, jc)
+        np.testing.assert_array_equal(t_logits.numpy().argmax(-1),
+                                      np.asarray(j_logits).argmax(-1))
+        nxt = np.asarray(j_logits).argmax(-1).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch,rel", [("granite-moe-1b-a400m", 2e-2),
+                                      ("xlstm-1.3b", 6e-2)])
+def test_bf16_moe_and_xlstm_logits_within_stated_tolerance(arch, rel):
+    """bf16 compute on the MoE and xLSTM stacks: prefill and one decode
+    step, logits within ``rel`` of the largest logit.  The MoE stack
+    takes the dense stacks' 2e-2; the xLSTM stack the recurrent stacks'
+    6e-2 (``test_torch_recurrent``): its four cells round in bf16 at other
+    points, and at prefill the reference's bf16 logits lie 6.0e-2 of the
+    largest logit from its fp32 ones, the port's 5.3e-2, and the two
+    2.05e-2 apart."""
+    jm, jp, tm, tp = _pair(arch, "bfloat16")
+    toks = np.random.default_rng(7).integers(1, 128, (2, 12)).astype(
+        np.int32)
+    j_logits, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks)},
+                              jm.init_cache(2, 16, per_slot=True))
+    t_logits, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                              tm.init_cache(2, 16, per_slot=True))
+    nxt = np.array([7, 9], np.int32)
+    j2, _ = jm.decode_step(jp, jc, tokens=jnp.asarray(nxt))
+    t2, _ = tm.decode_step(tp, tc, torch.from_numpy(nxt))
+    for t, j in ((t_logits, j_logits), (t2, j2)):
+        j = np.asarray(j)
+        np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                   atol=rel * np.abs(j).max())
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_param_tree_and_serving_flags_match_reference(arch):
+    """The reference's weights fill the port's spec tree leaf for leaf
+    (deepseek's dense layer 0 in the prefix), n_params() is equal, and
+    the serving flags agree: MoE pads and pages, xLSTM neither."""
+    jm, jp, tm, tp = _pair(arch)
+    assert [tuple(a.shape) for a in tree_leaves(tp, torch.is_tensor)] == \
+        [a.shape for a in jax.tree.leaves(jp)]
+    assert tm.n_params() == jm.n_params()
+
+    def descs(plan):
+        return ([(d.kind, d.ffn) for d in plan.prefix],
+                [(d.kind, d.ffn) for d in plan.period], plan.n_periods)
+    assert descs(tm.plan) == descs(jm.plan)
+    assert tm.supports_padded_prefill == jm.supports_padded_prefill \
+        == (arch != "xlstm-1.3b")
+    assert tm.supports_paged_cache == jm.supports_paged_cache \
+        == (arch != "xlstm-1.3b")
+    if arch == "deepseek-moe-16b":
+        assert descs(tm.plan)[0] == [("attn", "dense0")]
+        assert tp["decoder"]["prefix"][0]["ffn"]["w_up"].shape[1] == \
+            tm.cfg.moe.dense_d_ff
 
 
 def test_model_resolves_device():
