@@ -177,6 +177,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2719,7 +2720,413 @@ def serve_moe_xlstm(card: str) -> dict:
             "decode": decode, "flash": flash}
 
 
+# ----- phase 15 --------------------------------------------------------------
+
+#: the training phase: sequence length and global batch of every
+#: full-width train step, qwen2-0.5b's steps, the step at which the
+#: resume run fails, the ddp runs' steps, recurrentgemma-2b's steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 512, 8, 20
+FAIL_AT, DDP_STEPS, RG_TRAIN_STEPS = 13, 3, 5
+#: the scan backward's checked shapes (recurrentgemma's lru width)
+SCAN_GRAD_SHAPES = ((1, 2048, 2560), (8, 512, 2560))
+#: the smoke configs whose fp32 train step must be the CPU's
+TRAIN_SMOKE_ARCHS = ("qwen2-0.5b", "recurrentgemma-2b",
+                     "granite-moe-1b-a400m", "xlstm-1.3b")
+#: checkpoints of the training runs (removed after each run)
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+def _free_card() -> None:
+    """Drop what earlier phases left (engines in reference cycles, exec
+    groups and their graph pools, the allocator's cached blocks)."""
+    import gc
+    import torch
+    from repro_torch.serve.engine import clear_exec_groups
+    gc.collect()
+    clear_exec_groups()
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    import torch
+    from repro_torch.models.params import tree_leaves
+    return tree_leaves(tree, torch.is_tensor)
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _finite(*values) -> bool:
+    import math
+    return all(math.isfinite(float(v)) for v in values)
+
+
+def _memory() -> str:
+    import torch
+    gib = 2 ** 30
+    return (f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB, reserved "
+            f"{torch.cuda.max_memory_reserved() / gib:.2f} GiB")
+
+
+def _plain_scan_backward(a, h, g):
+    """The scan's backward through the plain version (``ref.py``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    a_rev = F.pad(a.flip(1)[:, :-1], (0, 0, 1, 0))
+    d = rglru_scan_ref(a_rev, g.float().flip(1)).flip(1)
+    return d * F.pad(h[:, :-1].float(), (0, 0, 1, 0)), d
+
+
+def check_scan_grad(card: str) -> dict:
+    """The RG-LRU Function's gradients (da, dx) on the card against torch
+    autograd through ``ref.py`` at ``SCAN_GRAD_SHAPES``, fp32 and bf16 x
+    (a fp32), within the kernel's limits (``rglru_tolerance`` of the
+    case's plain output: 1e-5 of max(1, max|plain|) in fp32, 4 bf16 ulps
+    of max|plain| in bf16); then the backward call (``ops.scan_backward``,
+    one kernel launch) at (8, 512, 2560) fp32, one input per RG-LRU layer
+    of the 18, timed eagerly and in a CUDA graph beside its plain
+    version.  -> the backward's entry of the ``kernels`` line."""
+    import torch
+    from repro_torch.kernels.rglru import ops, ref
+    err = 0.0
+    for b, t, c in SCAN_GRAD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(b * t)
+            a, x = _rglru_inputs(gen, b, t, c, torch.float32)
+            x = x.to(dtype)
+            g = _rand(gen, (b, t, c), dtype)
+            a1, x1 = a.clone().requires_grad_(), x.clone().requires_grad_()
+            got = torch.autograd.grad(ops.rglru_scan(a1, x1), (a1, x1), g)
+            a2, x2 = a.clone().requires_grad_(), x.clone().requires_grad_()
+            want = torch.autograd.grad(ref.rglru_scan_ref(a2, x2), (a2, x2),
+                                       g)
+            for name, gv, wv in zip(("da", "dx"), got, want):
+                e = (gv.float() - wv.float()).abs().max().item()
+                tol = rglru_tolerance(wv.to(dtype))
+                if not e <= tol:
+                    raise AssertionError(
+                        f"scan gradient {name} at ({b}, {t}, {c}) {dtype}: "
+                        f"err {e} > {tol}")
+                if dtype == torch.float32 and (b, t) == (8, 512):
+                    err = max(err, e)
+            log(f"scan gradients at ({b}, {t}, {c}) x {dtype}: da, dx "
+                f"within the kernel's limits")
+    n_layers, (b, t, c) = 18, SCAN_GRAD_SHAPES[1]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    inputs = []
+    for _ in range(n_layers):
+        a, x = _rglru_inputs(gen, b, t, c, torch.float32)
+        inputs.append((a, ref.rglru_scan_ref(a, x), _rand(gen, (b, t, c),
+                                                            torch.float32)))
+    ms = _time_ms(lambda i: ops.scan_backward(*inputs[i], torch.float32),
+                  n_layers)
+    graph_ms = _time_graph_ms(
+        lambda i: ops.scan_backward(*inputs[i], torch.float32), n_layers,
+        iters=20, warmup=20)
+    plain_ms = _time_ms(lambda i: _plain_scan_backward(*inputs[i]),
+                        n_layers, iters=1)
+    n = b * t * c
+    io_bytes = n * 4 * 6            # a, x, h, g read; da, dx written
+    t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = 3 * n / FP32_FLOPS_PER_S * 1e3
+    entry = dict(shape=f"B={b}, T={t}, C={c} fp32", max_abs_err=err, ms=ms,
+                 graph_ms=graph_ms, plain_ms=plain_ms,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 library_ms=None, bytes=io_bytes)
+    log(f"rglru_scan backward at ({b}, {t}, {c}) fp32: {ms * 1e3:.2f} "
+        f"us/call eager, {graph_ms * 1e3:.2f} us/call in a CUDA graph, "
+        f"bound {entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']}: "
+        f"{io_bytes / 1e6:.1f} MB), plain {plain_ms:.1f} ms, max abs err "
+        f"{err:.3e}; on {card}")
+    return entry
+
+
+def _train_config(name: str, **kw):
+    from repro_torch.train.loop import TrainConfig
+    fields = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                  n_steps=TRAIN_STEPS, checkpoint_every=10, log_every=5,
+                  remat=True, checkpoint_dir=str(TRAIN_DIR / name),
+                  device="cuda")
+    fields.update(kw)
+    return TrainConfig(**fields)
+
+
+def train_qwen2(card: str) -> dict:
+    """qwen2-0.5b at full width and depth from seed 0 (fp32 leaves, bf16
+    compute, remat): ``Trainer`` for 20 steps of (8, 512), checkpoints
+    every 10, then a second run that fails at step 13, restores step 10
+    and must end with the first run's params bit for bit, with one
+    restart.  Both run under ``torch.use_deterministic_algorithms``
+    (switched off after them), so the timed run is the deterministic
+    one.  Gates: loss and grad norm finite at every logged step, the last
+    logged loss below the first, no flash launch (training runs the
+    reference's attention)."""
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import TransientWorkerFailure
+    from repro_torch.train.loop import Trainer
+    cfg = get_config("qwen2-0.5b")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    _free_card()
+    torch.use_deterministic_algorithms(True)
+    try:
+        stamps = []
+
+        def clock(step):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        first = Trainer(cfg, _train_config("qwen2_a"))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        logs = first.train(failure_injector=clock)
+        counts = read_counts()
+        memory = _memory()
+        first.opt_state = None
+        fired = []
+
+        def chaos(step):
+            if step == FAIL_AT and not fired:
+                fired.append(step)
+                raise TransientWorkerFailure("injected")
+
+        second = Trainer(cfg, _train_config("qwen2_b"))
+        second.train(failure_injector=chaos)
+        same = _trees_equal(first.params, second.params)
+        restarts = second.supervisor.restarts
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    ms = statistics.median(step_ms[2:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / ms * 1e3
+    log(f"qwen2-0.5b train ({cfg.n_layers} layers, {TRAIN_STEPS} steps of "
+        f"({TRAIN_BATCH}, {TRAIN_SEQ}), deterministic): losses "
+        + ", ".join(f"{m['step']}: {m['loss']:.4f}" for m in logs)
+        + f"; grad norms " + ", ".join(f"{m['grad_norm']:.3f}" for m in logs)
+        + f"; {ms:.1f} ms a step (median after step 2; steps "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + f"), {tok_s:.0f} "
+        f"tokens/s, {memory}; launches {counts}; resume after a failure "
+        f"at step {FAIL_AT}: restarts {restarts}, params equal {same}; "
+        f"on {card}")
+    bad = [m["step"] for m in logs
+           if not _finite(m["loss"], m["grad_norm"])]
+    if bad or not logs[-1]["loss"] < logs[0]["loss"]:
+        raise AssertionError(f"qwen2-0.5b training: non-finite at steps "
+                             f"{bad} or the loss did not fall")
+    if counts["flash_attention"]:
+        raise AssertionError("training launched the flash kernel")
+    if not (fired and restarts == 1 and same):
+        raise AssertionError(f"resume after a failure: fired {fired}, "
+                             f"restarts {restarts}, params equal {same}")
+    return dict(ms=ms, tok_s=tok_s, memory=memory,
+                first_loss=logs[0]["loss"], last_loss=logs[-1]["loss"])
+
+
+def ddp_qwen2(card: str) -> dict:
+    """qwen2-0.5b at full width in ``ddp`` mode on a one-process NCCL
+    group, deterministic: for each of the six categories, 3 steps of
+    ``make_ddp_train_step`` from seed 0 must end with the params of 3
+    steps of ``make_train_step`` (jit mode) bit for bit, and each step
+    must issue as many collectives as its bucket plan has (bucket, dtype)
+    buffers; then ``Int8Compressor`` for 3 steps with a finite loss."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.comm.compression import Int8Compressor
+    from repro_torch.configs import get_config
+    from repro_torch.core.endpoints import Category
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import make_ddp_train_step, make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = get_config("qwen2-0.5b")
+    model = Model(cfg, "cuda")
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, DDP_STEPS))
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    _free_card()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    torch.use_deterministic_algorithms(True)
+
+    def run(step, ddp, comp=()):
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        state, losses, times = opt.init(params), [], []
+        for i in range(DDP_STEPS):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in data.batch_at(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if ddp:
+                params, state, m, comp = step(params, state, batch, comp)
+            else:
+                params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return params, losses, times
+
+    rows, bad = {}, []
+    try:
+        ref_params, ref_losses, ref_ms = run(make_train_step(model, opt),
+                                             False)
+        for cat in Category:
+            step, engine = make_ddp_train_step(model, opt, category=cat)
+            params, losses, ms = run(step, True)
+            buffers = engine.make_plan(params).n_buffers
+            same = _trees_equal(params, ref_params)
+            rows[cat.value] = dict(collectives=engine.last_collectives,
+                                   buffers=buffers, bytes=engine.last_bytes,
+                                   equal=same, ms=ms[-1])
+            if not same or engine.last_collectives != buffers \
+                    or losses != ref_losses:
+                bad.append(cat.value)
+            del params
+        step, engine = make_ddp_train_step(model, opt,
+                                           category=Category.DYNAMIC,
+                                           compressor=Int8Compressor())
+        shapes = model.init(torch.Generator(device="cuda").manual_seed(0))
+        comp = engine.init_compressor_state(shapes)
+        del shapes
+        _, int8_losses, int8_ms = run(step, True, comp)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    log("qwen2-0.5b ddp (one-process NCCL group, deterministic, "
+        f"{DDP_STEPS} steps of ({TRAIN_BATCH}, {TRAIN_SEQ})): jit losses "
+        f"{ref_losses}, last step {ref_ms[-1]:.1f} ms; " + "; ".join(
+            f"{name} {r['collectives']} collectives a step (plan buffers "
+            f"{r['buffers']}), {r['bytes'] / 1e9:.3f} GB, last step "
+            f"{r['ms']:.1f} ms, equal to jit {r['equal']}"
+            for name, r in rows.items())
+        + f"; int8 losses {int8_losses}, last step {int8_ms[-1]:.1f} ms; "
+        f"on {card}")
+    if bad:
+        raise AssertionError(f"ddp differs from jit or its collectives from "
+                             f"its plan: {bad}")
+    if not _finite(*int8_losses):
+        raise AssertionError(f"int8 ddp loss not finite: {int8_losses}")
+    return dict(rows=rows, jit_ms=ref_ms[-1], int8_losses=int8_losses)
+
+
+def train_recurrentgemma(card: str) -> dict:
+    """recurrentgemma-2b at full width and depth from seed 0 (fp32
+    leaves, bf16 compute, remat): 5 steps of ``make_train_step`` at
+    (8, 512).  Gates: finite loss and grad norm; ``rglru_scan`` launched
+    as often as the remat structure says (``remat_forward_counts``: each
+    RG-LRU layer's forward runs, plus its backward's reverse-time call,
+    per step); no flash launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import remat_forward_counts
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = get_config("recurrentgemma-2b")
+    model = Model(cfg, "cuda")
+    plan = model.plan
+    descs = list(plan.prefix) + list(plan.period) * plan.n_periods
+    per_step = [n + 1 for n, d in zip(remat_forward_counts(plan), descs)
+                if d.kind == "rglru"]
+    expected = RG_TRAIN_STEPS * sum(per_step)
+    _free_card()
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, RG_TRAIN_STEPS))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state = opt.init(params)
+    step = make_train_step(model, opt, remat=True)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, norms, step_ms = [], [], []
+    for i in range(RG_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    memory = _memory()
+    del params, state
+    _free_card()
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"recurrentgemma-2b train ({cfg.n_layers} layers, "
+        f"{len(per_step)} RG-LRU, {RG_TRAIN_STEPS} steps of ({TRAIN_BATCH}, "
+        f"{TRAIN_SEQ})): losses {losses}, grad norms {norms}; steps "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + f" ms ({ms:.1f} median "
+        f"after the first), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} "
+        f"tokens/s, {memory}; rglru_scan launches {counts['rglru_scan']} "
+        f"(expected {expected}: {RG_TRAIN_STEPS} steps x {per_step}), "
+        f"flash {counts['flash_attention']}; on {card}")
+    if not _finite(*losses, *norms):
+        raise AssertionError("recurrentgemma-2b training: non-finite loss "
+                             "or grad norm")
+    if counts["rglru_scan"] != expected or counts["flash_attention"]:
+        raise AssertionError(f"recurrentgemma-2b training launches "
+                             f"{counts}, expected rglru_scan {expected}")
+    return dict(ms=ms, memory=memory, launches=counts["rglru_scan"],
+                backward_launches=RG_TRAIN_STEPS * len(per_step))
+
+
+def train_smoke_card_vs_cpu(card: str) -> None:
+    """One train step's loss and gradients (``value_and_grad``) at fp32
+    on the smoke configs of ``TRAIN_SMOKE_ARCHS``, (2, 32) batches, card
+    against CPU: the loss within 1e-5 relative, each gradient leaf within
+    1e-4 of its largest CPU magnitude, floored at 1e-3 of the model's
+    largest (a gradient that is exactly zero, as the sLSTM input-gate
+    bias's, holds rounding noise of about 1e-9 on both devices)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_map
+    bad = []
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+                 for k in ("tokens", "labels")}
+        out = {}
+        for dev in ("cpu", "cuda"):
+            out[dev] = value_and_grad(
+                Model(cfg, dev),
+                tree_map(lambda t: t.to(dev), params, torch.is_tensor),
+                {k: v.to(dev) for k, v in batch.items()})
+        (l_cpu, _), g_cpu = out["cpu"]
+        (l_card, _), g_card = out["cuda"]
+        g_cpu, g_card = _leaves(g_cpu), _leaves(g_card)
+        floor = 1e-3 * max(g.abs().max().item() for g in g_cpu)
+        worst = max((a.cpu() - b).abs().max().item()
+                    / max(b.abs().max().item(), floor)
+                    for a, b in zip(g_card, g_cpu))
+        loss_err = abs(l_card.item() - l_cpu.item()) / abs(l_cpu.item())
+        log(f"{arch} smoke fp32 train step: loss card {l_card.item():.6f} "
+            f"CPU {l_cpu.item():.6f} (rel {loss_err:.2e}), worst gradient "
+            f"leaf {worst:.2e} of its scale")
+        if not (loss_err <= 1e-5 and worst <= 1e-4):
+            bad.append(arch)
+    if bad:
+        raise AssertionError(f"card and CPU train steps differ: {bad}")
+
+
 def main() -> int:
+    # the deterministic phases' cuBLAS needs this before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2784,6 +3191,16 @@ def main() -> int:
     family = phase("the MoE and xLSTM families at full width: "
                    "granite-moe-1b-a400m, deepseek-moe-16b (4 layers), "
                    "xlstm-1.3b", serve_moe_xlstm, card)
+    scan_grad = phase("rglru_scan gradients vs plain version",
+                      check_scan_grad, card)
+    trained = phase("train qwen2-0.5b at full width: 20 steps, resume "
+                    "after a failure", train_qwen2, card)
+    ddp = phase("train qwen2-0.5b in ddp mode: six categories, int8",
+                ddp_qwen2, card)
+    rg_trained = phase("train recurrentgemma-2b at full width",
+                       train_recurrentgemma, card)
+    phase("smoke configs' train step at fp32: card vs CPU",
+          train_smoke_card_vs_cpu, card)
     kernels = rg_kernel = flash = None
     if served is not None and long is not None:
         runs, prompts = served[:2]
@@ -2803,7 +3220,8 @@ def main() -> int:
                         served[3], served[1], card)
     if failed or kernels is None or rg_kernel is None or flash is None \
             or surface is None or fleet is None or planner is None \
-            or family is None:
+            or family is None or scan_grad is None or trained is None \
+            or ddp is None or rg_trained is None:
         log(f"FAILED phases: {failed}")
         return 1
     # the kernels at phase 14's shapes join their entries' cases
@@ -2811,6 +3229,10 @@ def main() -> int:
         entry["cases"] += [family["decode"][m][entry["name"]]
                            for m in family["decode"]]
     flash["cases"] += family["flash"]
+    # the scan's backward call: its launches on the training path
+    rg_kernel["backward"] = dict(
+        scan_grad, launches=rg_trained["backward_launches"])
+    rg_kernel["train_launches"] = rg_trained["launches"]
     log(f"decode tok/s: qwen2-0.5b contiguous "
         f"{served[0]['ragged_decode']['tok_s']:.1f}, paged "
         f"{served[0]['paged_decode']['tok_s']:.1f}, long prompts contiguous "
@@ -2843,6 +3265,13 @@ def main() -> int:
             for m in ("granite", "deepseek", "xlstm")
             for name, r in family[m].items() if name != "lengths")
         + f"; on {card}")
+    log(f"phase 15, training: qwen2-0.5b {trained['ms']:.1f} ms a step, "
+        f"{trained['tok_s']:.0f} tokens/s, {trained['memory']}, loss "
+        f"{trained['first_loss']:.4f} -> {trained['last_loss']:.4f}; ddp "
+        f"collectives a step " + ", ".join(
+            f"{name} {r['collectives']}" for name, r in ddp["rows"].items())
+        + f"; recurrentgemma-2b {rg_trained['ms']:.1f} ms a step, "
+        f"{rg_trained['memory']}; on {card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

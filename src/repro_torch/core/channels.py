@@ -6,8 +6,8 @@ the endpoint categories, DESIGN.md §9): a dedicated queue per worker is
 MPI everywhere, one global queue MPI+threads, k-way-shared queue groups
 the scalable middle.  ``ChannelPlan`` / ``plan_for`` map logical
 producers onto collective channels (the reference's training-side
-reading of the categories; the gradient-sync engine that consumes them
-comes with the training slice).
+reading of the categories, which ``comm.engine.GradSyncEngine``
+consumes).
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@
 signatures (``repro.kernels.flash_attention.ops``, without
 ``interpret``).  For a CUDA tensor each builds (at first use) and
 launches its hand-written CUDA kernel on the current stream, or raises:
-there is no fallback.  For a CPU tensor each runs its plain PyTorch
-version (``ref.py``).  Each wrapper counts its kernel launches in
+there is no fallback.  The kernels are forward only: under grad mode a
+CUDA input that requires grad raises.  For a CPU tensor each runs its
+plain PyTorch version (``ref.py``).  Each wrapper counts its kernel launches in
 ``LAUNCHES``: one per wrapper call, though a decode call is two CUDA
 launches (the split pass and the combine pass).
 """
@@ -45,10 +46,21 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def _refuse_grad(name, *tensors) -> None:
+    """The kernels are forward only and write through raw pointers, so
+    autograd would see a fresh tensor with no history: under grad mode an
+    input that requires grad raises instead of losing its gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel is forward only; an input "
+                           f"requires grad (train through the model's "
+                           f"plain attention)")
+
+
 def _check_common(q, k, v, cur_index, name):
     if q.device.type != "cuda":
         raise RuntimeError(f"{name}: tensors on {q.device} have no kernel; "
                            f"the plain version serves only CPU tensors")
+    _refuse_grad(name, q, k, v)
     for t, what in ((k, "k"), (v, "v"), (cur_index, "cur_index")):
         if t.device != q.device:
             raise ValueError(f"{name}: {what} on {t.device}, q on "
@@ -173,7 +185,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     16-byte aligned data: the views of a fused projection are).
     ``q_block`` and ``kv_block`` are the reference's tiling; the result
     does not depend on them, and the kernel keeps its own tiles.  Forward
-    only: on the card an input that requires grad raises."""
+    only: on the card, under grad mode, an input that requires grad
+    raises."""
     del q_block, kv_block
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -192,9 +205,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q/k/v dtypes differ ({q.dtype}, "
                         f"{k.dtype}, {v.dtype})")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("flash_attention: the kernel is forward only; an "
-                           "input requires grad")
+    _refuse_grad("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")

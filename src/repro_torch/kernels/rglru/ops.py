@@ -8,12 +8,21 @@ two-pass scan: T is cut into chunks by ``scan_chunks``, pass 1 reduces
 each chunk to its product of ``a`` and its end state, pass 2 folds the
 chunks before each into its carry and walks it.  For a CPU tensor it runs
 the plain PyTorch version (``ref.py``).  Launches are counted in
-``LAUNCHES``: one per wrapper call, though a call is two CUDA launches.
+``LAUNCHES``: one per kernel call, though a call is two CUDA launches.
+
+Under grad mode, with an input that requires grad, the scan runs as an
+``autograd.Function`` (``_ScanFn``): the gradient of ``h_t = a_t
+h_{t-1} + x_t`` is the same recurrence in reverse time, ``d_t = g_t +
+a_{t+1} d_{t+1}``, with ``dx = d`` and ``da_t = d_t h_{t-1}`` (``h_0 =
+0``), so the backward is one more call of the same kernel (counted like
+any other) on time-reversed copies of ``a`` (shifted by one step) and of
+the output gradient.  On CPU tensors both directions run ``ref.py``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
@@ -63,7 +72,46 @@ def scan_chunks(b: int, t: int, c: int):
 def rglru_scan(a, x):
     """a, x: (B, T, C) -> h with ``h_t = a_t * h_{t-1} + x_t``, ``h_0 = 0``,
     an fp32 carry, in x's dtype.  Any strides and any T; a and x may
-    differ in dtype (float32 or bfloat16)."""
+    differ in dtype (float32 or bfloat16).  Differentiable in a and x."""
+    if torch.is_grad_enabled() and (a.requires_grad or x.requires_grad):
+        return _ScanFn.apply(a, x)
+    return _scan(a, x)
+
+
+class _ScanFn(torch.autograd.Function):
+    """The scan with its reverse-time backward (module docstring).  Saves
+    a and h; the backward's recurrence runs in fp32 (its ``g`` cast up),
+    dx comes back in x's dtype and da in a's."""
+
+    @staticmethod
+    def forward(ctx, a, x):
+        h = _scan(a, x)
+        ctx.x_dtype = x.dtype
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        return scan_backward(a, h, g, ctx.x_dtype)
+
+
+def scan_backward(a, h, g, x_dtype):
+    """The scan's gradients: -> (da in a's dtype, dx in ``x_dtype``) of
+    ``h = rglru_scan(a, x)`` under the output gradient ``g``.  One kernel
+    call: ``d_t = g_t + a_{t+1} d_{t+1}`` runs forward over the reversed
+    time axis, in fp32."""
+    # reversed in time, step t' = T-1-t carries a_{t+1}: the first
+    # reversed step (t = T-1) has no successor, so its factor is 0
+    a_rev = F.pad(a.flip(1)[:, :-1], (0, 0, 1, 0))
+    d = _scan(a_rev, g.float().flip(1)).flip(1)
+    h_prev = F.pad(h[:, :-1].float(), (0, 0, 1, 0))
+    return (d * h_prev).to(a.dtype), d.to(x_dtype)
+
+
+def _scan(a, x):
+    """One call of the kernel (CUDA tensors) or of its plain version (CPU
+    tensors)."""
     if a.device.type == "cpu" and x.device.type == "cpu":
         return rglru_scan_ref(a, x)
     if a.device.type != "cuda" or x.device != a.device:

@@ -6,6 +6,8 @@ On the card, prefill attention runs the flash kernel
 ``flash_attention_bhsd``) at every length; on the CPU it keeps the
 reference's choice of ``attention_reference`` or ``attention_chunked``
 (``select_attention``), which stay as the CPU path and the oracles.
+Training takes the reference's choice on both devices, differentiably
+(``attention_chunked`` checkpoints each kv step, as the reference does).
 Decode attention on the card goes through the decode kernel wrappers in
 ``kernels.flash_attention.ops``; ``attention_decode`` and
 ``attention_decode_paged`` are the model-side oracles they are held to.
@@ -16,6 +18,7 @@ from __future__ import annotations
 from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ref
@@ -109,6 +112,21 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
+def _kv_step(acc, m, l, q_i, k_j, v_j, q_pos, k_pos, *, causal, window,
+             softcap):
+    """One kv block of the streaming softmax: -> (acc, m, l)."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j.float())
+    s = _softcap(s, softcap)
+    s = s.masked_fill(~_valid(q_pos, k_pos, causal, window), NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p, v_j.float())
+    return acc, m_new, l
+
+
 def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
                       softcap: float = 0.0, q_block: int = 512,
                       kv_block: int = 1024, q_offset: int = 0,
@@ -129,6 +147,10 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
     kv_block = min(kv_block, sk)
     nq, nk = -(-sq // q_block), -(-sk // kv_block)
     scale = dh ** -0.5
+    # the reference checkpoints every kv step: a backward recomputes the
+    # step's (q_block, kv_block) scores instead of keeping them
+    differentiable = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = []
     for qi in range(nq):
         q0, q1 = qi * q_block, min((qi + 1) * q_block, sq)
@@ -145,18 +167,15 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
                        // kv_block)
         for kj in range(n_kv):
             k0, k1 = kj * kv_block, min((kj + 1) * kv_block, sk)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k[:, k0:k1].float())
-            s = _softcap(s, softcap)
-            k_pos = torch.arange(k0, k1, device=q.device)
-            s = s.masked_fill(~_valid(q_pos, k_pos, causal, window),
-                              NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, v[:, k0:k1].float())
-            m = m_new
+            step_args = (acc, m, l, q_i, k[:, k0:k1], v[:, k0:k1], q_pos,
+                         torch.arange(k0, k1, device=q.device))
+            if differentiable:
+                acc, m, l = checkpoint(_kv_step, *step_args, causal=causal,
+                                       window=window, softcap=softcap,
+                                       use_reentrant=False)
+            else:
+                acc, m, l = _kv_step(*step_args, causal=causal,
+                                     window=window, softcap=softcap)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q1 - q0, hq, dh))
     return torch.cat(outs, dim=1).to(q.dtype)
@@ -216,9 +235,11 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, cur_index, *,
 
 def select_attention(cfg: ArchConfig, seq_len: int,
                      skip_future: bool = False, on_card: bool = False):
-    """On the card, the flash kernel's wrapper at every length; on the
-    CPU, as the reference picks: chunked attention for long sequences,
-    the full-score reference for short ones."""
+    """With ``on_card``, the flash kernel's wrapper at every length;
+    otherwise as the reference picks: chunked attention for long
+    sequences, the full-score reference for short ones.  Training passes
+    ``on_card=False`` on both devices: the reference never trains
+    through its kernel, and the flash kernel is forward only."""
     if on_card:
         return flash_attention
     if seq_len >= 1024:

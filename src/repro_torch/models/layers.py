@@ -1,10 +1,12 @@
-"""Shared layers, forward only: norms, rotary embeddings, FFN, embeddings.
+"""Shared layers: norms, rotary embeddings, FFN, embeddings.
 
 Each function mirrors its counterpart in ``repro.models.layers`` op for
 op: fp32 row statistics for the norms, fp32 rotary angles computed as
 fp32 positions times fp32 frequencies, and every weight cast to the
 activation dtype before use (a no-op when the model already holds a
-compute-dtype copy).
+compute-dtype copy).  The norm is a ``torch.autograd.Function`` with the
+reference's custom VJP (``_norm_core``): its backward keeps only x and
+the (B, S, 1) fp32 row statistics.
 """
 
 from __future__ import annotations
@@ -42,14 +44,58 @@ def _row_stats(x, kind):
     return mean, torch.rsqrt(var + NORM_EPS)
 
 
-def apply_norm(p, x, kind: str):
-    """rmsnorm / layernorm with fp32 row statistics, applied in x.dtype."""
+def _norm_forward(x, scale, bias, kind, mean, inv):
     dt = x.dtype
-    mean, inv = _row_stats(x, kind)
     if kind == "rmsnorm":
-        return x * inv.to(dt) * p["scale"].to(dt)
+        return x * inv.to(dt) * scale.to(dt)
     xhat = (x - mean.to(dt)) * inv.to(dt)
-    return xhat * p["scale"].to(dt) + p["bias"].to(dt)
+    return xhat * scale.to(dt) + bias.to(dt)
+
+
+class _Norm(torch.autograd.Function):
+    """rmsnorm / layernorm with the reference's backward
+    (``repro.models.layers._norm_bwd``), in terms of x (x.dtype) and the
+    fp32 row statistics only:
+
+      rms:  dx = inv*g - x * inv^3/N * sum(g*x);        g = dy*scale
+      ln :  dx = inv*(g - mean(g) - xhat*mean(g*xhat))
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, kind):
+        mean, inv = _row_stats(x, kind)
+        ctx.kind = kind
+        ctx.save_for_backward(x, scale, bias, mean, inv)
+        return _norm_forward(x, scale, bias, kind, mean, inv)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, mean, inv = ctx.saved_tensors
+        n = x.shape[-1]
+        lead = tuple(range(dy.dim() - 1))
+        g = dy * scale.to(dy.dtype)
+        if ctx.kind == "rmsnorm":
+            s = (g * x).float().sum(-1, keepdim=True)
+            coef = (inv ** 3 / n) * s
+            dx = (g * inv.to(g.dtype) - x * coef.to(g.dtype)).to(x.dtype)
+            xhat_scaled = x * inv.to(x.dtype)
+            dscale = (dy * xhat_scaled).float().sum(lead).to(scale.dtype)
+            return dx, dscale, None, None
+        xhat = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        gm = g.float().mean(-1, keepdim=True)
+        gxm = (g * xhat).float().mean(-1, keepdim=True)
+        dx = ((g - gm.to(g.dtype) - xhat * gxm.to(g.dtype))
+              * inv.to(g.dtype)).to(x.dtype)
+        dscale = (dy * xhat).float().sum(lead).to(scale.dtype)
+        dbias = dy.float().sum(lead).to(scale.dtype)
+        return dx, dscale, dbias, None
+
+
+def apply_norm(p, x, kind: str):
+    """rmsnorm / layernorm with fp32 row statistics, applied in x.dtype.
+    Differentiable through :class:`_Norm`; with grad mode off (serving)
+    the same forward runs and saves nothing."""
+    return _Norm.apply(x, p["scale"], p.get("bias"), kind)
 
 
 def rms_group_norm(x, scale, n_groups: int):

@@ -1,12 +1,16 @@
-"""Model: config -> params / prefill / decode_step / decode_horizon.
+"""Model: config -> params / loss_fn / prefill / decode_step /
+decode_horizon.
 
-The serving half of ``repro.models.model`` for decoders of attention and
-RG-LRU blocks, in eager PyTorch on an explicit device.  Parameters are
-the same tree as the reference's (``param_specs``); ``prepare_params``
-places them on the device in the compute dtype once, where the reference
-cast every weight on every call (the values are identical), except the
-leaves whose specs say ``keep_fp32`` (the RG-LRU gates, which the
-reference reads in fp32), which stay fp32.
+``repro.models.model`` for decoders of attention, RG-LRU, xLSTM and MoE
+blocks, in eager PyTorch on an explicit device.  Parameters are the same
+tree as the reference's (``param_specs``).  Serving's
+``prepare_params`` places them on the device in the compute dtype once,
+where the reference cast every weight on every call (the values are
+identical), except the leaves whose specs say ``keep_fp32`` (the RG-LRU
+gates and the xLSTM cells' weights, which the reference reads in fp32),
+which stay fp32.  Training differentiates the fp32 leaves themselves:
+``loss_fn`` casts them inside the graph, per use (each ``.to(dtype)`` of
+the layers) or once up front (``cast_params_once``).
 
 Caches are dicts of tensors updated in place (see ``transformer``); the
 ``idx`` entry is replaced by a new tensor on every call, as in the
@@ -25,6 +29,7 @@ from repro_torch.models.attention import select_attention
 from repro_torch.models.layers import (apply_norm, compute_dtype,
                                        embed_specs, embed_tokens,
                                        head_matrix, norm_specs)
+from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.models.transformer import (ATTN_KINDS, BlockCtx,
                                             apply_stack, check_slice,
                                             init_stack_cache, make_plan,
@@ -90,11 +95,14 @@ class Model:
         return pos
 
     def forward(self, params, batch, *, mode="prefill", cache=None,
-                skip_future=False, use_ragged_kernel=False,
+                remat=False, skip_future=False, use_ragged_kernel=False,
                 decode_write_mask=None, step_active=None):
-        """-> (hidden (B,S,d), new_cache).  A decode step needs
-        ``step_active`` (0-d bool tensor): off, the step advances no
-        ``idx`` and leaves the recurrent state alone."""
+        """-> (hidden (B,S,d), new_cache, aux_loss fp32 0-d).  A decode step
+        needs ``step_active`` (0-d bool tensor): off, the step advances no
+        ``idx`` and leaves the recurrent state alone.  ``mode="train"``
+        runs the reference's attention choice on every device (the flash
+        kernel is forward only) and, with ``remat``, checkpoints the stack
+        as the reference does."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"], cfg)
         b, s = x.shape[:2]
@@ -106,7 +114,7 @@ class Model:
             cfg=cfg, mode=mode, positions=pos,
             attn_fn=select_attention(
                 cfg, s, skip_future=skip_future and mode == "prefill",
-                on_card=x.device.type == "cuda"),
+                on_card=x.device.type == "cuda" and mode != "train"),
             decode_idx=cache.get("idx"),
             window_cache=self.window_cache,
             ragged_kernel=use_ragged_kernel and mode == "decode",
@@ -114,15 +122,44 @@ class Model:
                                else None),
             page_table=cache.get("pt") if mode == "decode" else None,
             step_active=step_active if mode == "decode" else None)
-        h = apply_stack(params["decoder"], x, cfg, self.plan, ctx,
-                        cache=cache.get("stack"))
+        h, aux = apply_stack(params["decoder"], x, cfg, self.plan, ctx,
+                             cache=cache.get("stack"), remat=remat)
         h = apply_norm(params["final_norm"], h, cfg.norm)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
         new_cache = None
         if cache:
             step = (step_active.to(cache["idx"].dtype) if mode == "decode"
                     else s)
             new_cache = dict(cache, idx=cache["idx"] + step)
-        return h, new_cache
+        return h, new_cache, aux
+
+    # ----- training ------------------------------------------------------
+    def loss_fn(self, params, batch, remat: bool = True,
+                cast_params_once: bool = False):
+        """-> (loss, metrics) with metrics ``nll``, ``n_tokens``, ``loss``
+        and, for MoE models, ``moe_aux`` (all fp32 0-d tensors).
+        ``params`` are the fp32 leaves being differentiated; the compute
+        dtype is reached inside the graph.  ``cast_params_once`` casts
+        every fp32 leaf of rank >= 2 to the compute dtype up front (the
+        reference's option), instead of at each use."""
+        cfg = self.cfg
+        if cast_params_once:
+            params = P.tree_map(
+                lambda p: p.to(self.dtype)
+                if p.dtype == torch.float32 and p.dim() >= 2 else p,
+                params, torch.is_tensor)
+        h, _, aux = self.forward(params, batch, mode="train", remat=remat)
+        head = head_matrix(params["embed"], cfg)
+        nll, n_tok = chunked_softmax_xent(h, head, batch["labels"],
+                                          mask=batch.get("loss_mask"))
+        loss = nll
+        metrics = {"nll": nll, "n_tokens": n_tok}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_coef * aux
+            metrics["moe_aux"] = aux
+        metrics["loss"] = loss
+        return loss, metrics
 
     # ----- serving -------------------------------------------------------
     @property
@@ -178,8 +215,8 @@ class Model:
         """Run the prompt, fill the cache; -> (last_logits, cache).
         ``last_index`` ((B,) int) gathers each row's logits at its own
         last real token (bucketed prefill pads prompts at the end)."""
-        h, new_cache = self.forward(params, batch, mode="prefill",
-                                    cache=cache, skip_future=skip_future)
+        h, new_cache, _ = self.forward(params, batch, mode="prefill",
+                                       cache=cache, skip_future=skip_future)
         if last_index is None:
             last = h[:, -1, :]
         else:
@@ -209,7 +246,7 @@ class Model:
         if step_active is None:
             step_active = torch.ones((), dtype=torch.bool,
                                      device=self.device)
-        h, new_cache = self.forward(
+        h, new_cache, _ = self.forward(
             params, {"tokens": tokens[:, None], "positions": pos},
             mode="decode", cache=cache, use_ragged_kernel=use_ragged_kernel,
             decode_write_mask=write_mask, step_active=step_active)

@@ -70,6 +70,35 @@ def tree_leaves(tree, is_leaf: Callable = lambda x: False) -> list:
     return [tree]
 
 
+def tree_flatten(tree, is_leaf: Callable = lambda x: False):
+    """-> (leaves in ``tree_leaves`` order, treedef).  The treedef is the
+    tree with each leaf replaced by its index in that order;
+    :func:`tree_unflatten` puts leaves back in its places."""
+    leaves = []
+
+    def walk(node):
+        if is_leaf(node) or not isinstance(node, (dict, list, tuple)):
+            leaves.append(node)
+            return _LeafIndex(len(leaves) - 1)
+        if isinstance(node, dict):
+            walked = {k: walk(node[k]) for k in sorted(node)}
+            return {k: walked[k] for k in node}
+        return type(node)(walk(v) for v in node)
+
+    return leaves, walk(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class _LeafIndex:
+    i: int
+
+
+def tree_unflatten(treedef, leaves):
+    """Inverse of :func:`tree_flatten`."""
+    return tree_map(lambda ix: leaves[ix.i], treedef,
+                    lambda x: isinstance(x, _LeafIndex))
+
+
 def stack_specs(tree, n: int, axis_name: str = "layers"):
     """Add a leading stacking dimension (the scanned body layers)."""
     return tree_map(

@@ -1,4 +1,4 @@
-"""RG-LRU recurrent block (Griffin / RecurrentGemma), forward only.
+"""RG-LRU recurrent block (Griffin / RecurrentGemma).
 
 Block: x -> [W_x -> causal depthwise conv -> RG-LRU] * gelu(W_gate x) -> W_out.
 RG-LRU:  r_t = sigma(W_r u + b_r)          (recurrence gate)
@@ -12,8 +12,9 @@ leaves them in fp32 whatever the compute dtype, as the reference reads
 them from its fp32 params).  The reference ran the recurrence as an
 ``associative_scan``; here every scan over T goes through the RG-LRU
 kernel's wrapper (``kernels.rglru.ops.rglru_scan``: the CUDA kernel on
-the card, its sequential plain version on the CPU), and decode keeps an
-O(d) fp32 carry.
+the card, its sequential plain version on the CPU; differentiable, its
+backward one more call of the same kernel in reverse time), and decode
+keeps an O(d) fp32 carry.
 """
 
 from __future__ import annotations
@@ -89,7 +90,9 @@ def _scan(a, x_in, h0=None):
     The carry folds into the first step (``h_1 = a_1 h_0 + x_1``), so the
     kernel, which starts from zero as the TPU kernel does, computes it.
     ``x_in`` is the gates' own fresh tensor: the fold updates its first
-    step in place."""
+    step in place.  No backward saves ``x_in`` (its product saves its
+    factors, the scan saves ``a`` and its output), so the write is safe
+    under autograd."""
     if h0 is not None:
         x_in[:, 0] += a[:, 0] * h0.float()
     return _scan_kernel(a, x_in)

@@ -15,6 +15,10 @@ Sliding-window layers of sub-quadratic models keep a ROLLING cache of
 ``min(max_len, window)`` rows, position ``t`` at row ``t % window``, as
 the reference does; RG-LRU and xLSTM blocks keep their conv and fp32
 state, written in place too.
+
+In train mode (no cache) the stack is differentiable and, with
+``remat``, checkpointed as the reference's is (``apply_stack``); the MoE
+blocks' auxiliary losses come back summed beside the output.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import (
@@ -105,16 +110,19 @@ def make_plan(cfg: ArchConfig, n_layers: Optional[int] = None,
 # --------------------------------------------------------------------------
 
 def check_slice(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what the port does not serve yet:
-    encoder-decoder models and embeddings input, which the reference's
-    serving engine refuses too, arrive with the training slice."""
+    """Raise NotImplementedError for what the port does not run yet:
+    encoder-decoder models and embeddings input (forward paths of their
+    own, which the reference's serving engine refuses too) arrive with
+    the slice after training, ROADMAP Queue 1 item 5b."""
     if cfg.input_mode != "tokens":
         raise NotImplementedError(
-            f"{cfg.name}: embeddings input arrives with the training slice")
+            f"{cfg.name}: embeddings input arrives with the encoder-decoder "
+            f"and embeddings-input slice (ROADMAP Queue 1 item 5b)")
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models arrive with the training "
-            f"slice")
+            f"{cfg.name}: encoder-decoder models arrive with the "
+            f"encoder-decoder and embeddings-input slice (ROADMAP Queue 1 "
+            f"item 5b)")
 
 
 #: the recurrent blocks by kind (also their param and cache keys): specs,
@@ -308,9 +316,10 @@ def _self_attention(p, h, ctx: BlockCtx, window: int, cache):
 
 def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
     """One block (attention or a recurrent cell, then its FFN: dense, MoE
-    or none); -> x.  ``cache`` (the block's ``{"attn": {"k", "v"}}``, or
-    ``{kind: state}`` for a recurrent block) is updated in place.  The
-    MoE FFN's auxiliary loss is discarded, as serving does."""
+    or none); -> (x, aux): ``aux`` the MoE FFN's auxiliary loss (fp32
+    0-d), None for the other FFNs.  ``cache`` (the block's ``{"attn":
+    {"k", "v"}}``, or ``{kind: state}`` for a recurrent block) is updated
+    in place."""
     cfg = ctx.cfg
     h = apply_norm(p["norm1"], x, cfg.norm)
     key = "attn" if desc.kind in ATTN_KINDS else desc.kind
@@ -322,11 +331,12 @@ def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
         x = x + _RECURRENT[desc.kind][1](p[desc.kind], h, cfg, sub,
                                          step_active=ctx.step_active)
     if desc.ffn == "none":
-        return x
+        return x, None
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     if desc.ffn == "moe":
-        return x + apply_moe(p["moe"], h2, cfg)[0]
-    return x + apply_ffn(p["ffn"], h2, cfg.act)
+        out, aux = apply_moe(p["moe"], h2, cfg)
+        return x + out, aux
+    return x + apply_ffn(p["ffn"], h2, cfg.act), None
 
 
 # --------------------------------------------------------------------------
@@ -376,17 +386,115 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree, torch.is_tensor)
 
 
+def _remat_group(n_periods: int) -> int:
+    """Largest divisor of n_periods not exceeding sqrt(n_periods) (1
+    below 4 periods): the periods one outer checkpoint holds."""
+    if n_periods < 4:
+        return 1
+    best = 1
+    d = 1
+    while d * d <= n_periods:
+        if n_periods % d == 0:
+            best = d
+        d += 1
+    return best
+
+
+def _add_aux(total, aux):
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
+def _checkpointed(fn):
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def apply_stack(params, x, cfg: ArchConfig, plan: LayerPlan, ctx: BlockCtx,
-                cache=None):
-    """-> x.  The cache (same tree as ``init_stack_cache``) is updated in
-    place."""
+                cache=None, remat: bool = False):
+    """-> (x, aux_sum): ``aux_sum`` the MoE blocks' auxiliary losses summed
+    (fp32 0-d), None when no block has one.  The cache (same tree as
+    ``init_stack_cache``) is updated in place.
+
+    With ``remat`` in train mode the stack checkpoints as the reference
+    does: each prefix block; each period, and within a period of more
+    than one block each block (nested); and, from 4 periods on, groups of
+    ``_remat_group(n_periods)`` periods under one more checkpoint.  The
+    backward then keeps only checkpoint inputs and recomputes the rest
+    (``remat_forward_counts`` says how often each block runs)."""
+    train_remat = remat and ctx.mode == "train"
+    aux = None
+
+    def block(p, desc, c):
+        return lambda xx: apply_block(p, xx, desc, ctx, c)
+
     for i, desc in enumerate(plan.prefix):
         c = cache["prefix"][i] if cache is not None else None
-        x = apply_block(params["prefix"][i], x, desc, ctx, c)
-    for layer in range(plan.n_periods):
+        fn = block(params["prefix"][i], desc, c)
+        if train_remat:
+            fn = _checkpointed(fn)
+        x, a = fn(x)
+        aux = _add_aux(aux, a)
+
+    def period(xx, layer):
+        total = None
         for pos, desc in enumerate(plan.period):
             c = (_layer(cache["body"][pos], layer) if cache is not None
                  else None)
-            x = apply_block(_layer(params["body"][pos], layer), x, desc,
-                            ctx, c)
-    return x
+            fn = block(_layer(params["body"][pos], layer), desc, c)
+            if train_remat and len(plan.period) > 1:
+                fn = _checkpointed(fn)
+            xx, a = fn(xx)
+            total = _add_aux(total, a)
+        return xx, total
+
+    if not train_remat:
+        for layer in range(plan.n_periods):
+            x, a = period(x, layer)
+            aux = _add_aux(aux, a)
+        return x, aux
+    group = _remat_group(plan.n_periods)
+
+    def periods(xx, first):
+        total = None
+        for layer in range(first, first + group):
+            xx, a = _checkpointed(period)(xx, layer)
+            total = _add_aux(total, a)
+        return xx, total
+
+    for first in range(0, plan.n_periods, group):
+        if group > 1:
+            x, a = _checkpointed(periods)(x, first)
+        else:
+            x, a = periods(x, first)
+        aux = _add_aux(aux, a)
+    return x, aux
+
+
+def remat_forward_counts(plan: LayerPlan, remat: bool = True) -> list:
+    """How many times each layer's forward runs in one training step of
+    ``apply_stack`` (layer order): 1, plus one recompute per checkpoint
+    that encloses the layer and is recomputed as far as the layer.
+
+    The checkpoints are non-reentrant with early stop (torch's default):
+    a checkpoint's recompute stops once it has rebuilt every tensor it
+    saved, the last being the inputs of its last child checkpoint, so the
+    last child of a region does not run in that region's recompute; a
+    block's own checkpoint reruns the whole block.  The RG-LRU scan of a
+    block is called this many times forward plus once backward."""
+    n_body = len(plan.period) * plan.n_periods
+    if not remat:
+        return [1] * (len(plan.prefix) + n_body)
+    counts = [2] * len(plan.prefix)
+    group = _remat_group(plan.n_periods)
+    nested = len(plan.period) > 1
+    for layer in range(plan.n_periods):
+        last_in_group = layer % group == group - 1
+        for pos in range(len(plan.period)):
+            n = 2                                   # forward, own recompute
+            if nested and pos < len(plan.period) - 1:
+                n += 1                              # the period's recompute
+            if group > 1 and not last_in_group:
+                n += 1                              # the group's recompute
+            counts.append(n)
+    return counts

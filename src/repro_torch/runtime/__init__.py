@@ -1,6 +1,11 @@
-"""Runtime policies (the port's copy of the part of ``repro.runtime`` the
-serving recovery layer uses)."""
+"""Runtime policies (the port of ``repro.runtime``): the training
+supervisor with restart from a checkpoint, heartbeat files, and
+straggler mitigation (which the serving recovery layer also uses)."""
 
-from repro_torch.runtime.fault_tolerance import StragglerMitigator
+from repro_torch.runtime.fault_tolerance import (Heartbeat,
+                                                 StragglerMitigator,
+                                                 Supervisor,
+                                                 TransientWorkerFailure)
 
-__all__ = ["StragglerMitigator"]
+__all__ = ["Heartbeat", "Supervisor", "StragglerMitigator",
+           "TransientWorkerFailure"]

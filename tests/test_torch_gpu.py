@@ -1207,3 +1207,134 @@ def test_shared_pool_interleaved_replays_equal_each_engines_eager_body(
     assert a.group.captures >= a.graph_count() + b.graph_count()
     assert _outputs(a.done) == eager["a"]
     assert _outputs(b.done) == eager["b"]
+
+
+# ----- training -------------------------------------------------------------
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,c", [(2, 300, 200), (1, 1025, 64),
+                                   (1, 2048, 2560)])
+def test_rglru_function_grads_match_plain(cuda, b, t, c, x_dtype):
+    """The scan's autograd Function on the card (forward, then the same
+    kernel in reverse time) against torch autograd through ``ref.py``:
+    da and dx within the kernel's limits; one launch each way."""
+    gen = torch.Generator(device="cuda").manual_seed(t + c)
+    a = 0.9 + 0.099 * torch.rand((b, t, c), generator=gen, device=cuda)
+    x = _rand(gen, (b, t, c), x_dtype)
+    g = _rand(gen, (b, t, c), x_dtype)
+    a1, x1 = a.clone().requires_grad_(), x.clone().requires_grad_()
+    rglru_ops.reset_launch_counts()
+    da, dx = torch.autograd.grad(rglru_ops.rglru_scan(a1, x1), (a1, x1), g)
+    assert rglru_ops.LAUNCHES["rglru_scan"] == 2
+    a2, x2 = a.clone().requires_grad_(), x.clone().requires_grad_()
+    ea, ex = torch.autograd.grad(rglru_ref.rglru_scan_ref(a2, x2), (a2, x2),
+                                 g)
+    assert da.dtype == torch.float32 and dx.dtype == x_dtype
+    for got, want in ((da, ea), (dx, ex)):
+        if x_dtype == torch.bfloat16:
+            tol = BF16_REL_TOL * want.float().abs().max().item()
+        else:
+            tol = 1e-5 * max(1.0, want.abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_attention_kernels_refuse_grad_requiring_inputs(cuda):
+    """A CUDA input that requires grad raises under grad mode in every
+    attention wrapper (the kernels are forward only: autograd would lose
+    the gradient); under no_grad the same call launches."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = _rand(gen, (2, 1, 4, 16), torch.float32)
+    k = _rand(gen, (2, 32, 2, 16), torch.float32)
+    cur = torch.tensor([3, 31], dtype=torch.int32, device=cuda)
+    pages = k.reshape(8, 8, 2, 16)
+    table = torch.arange(8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    qp = _rand(gen, (2, 9, 4, 16), torch.float32)
+    kp = _rand(gen, (2, 9, 2, 16), torch.float32)
+    calls = [lambda q_: ops.flash_decode_attention(q_, k, k, cur),
+             lambda q_: ops.paged_flash_decode_attention(q_, pages, pages,
+                                                         table, cur),
+             lambda q_: ops.flash_attention(q_, kp, kp)]
+    for call, q_ in zip(calls, (q, q, qp)):
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call(q_.clone().requires_grad_())
+        with torch.no_grad():
+            call(q_.clone().requires_grad_())
+
+
+TRAIN_ARCHS = ["qwen2-0.5b", "recurrentgemma-2b", "granite-moe-1b-a400m",
+               "xlstm-1.3b"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step's loss and gradients at fp32 on the card equal the
+    CPU's: the loss within 1e-5 relative, each gradient leaf within 1e-4
+    of its largest magnitude (floored at 1e-3 of the largest gradient:
+    an exactly-zero gradient holds rounding noise).  Training never
+    launches the flash kernel; recurrentgemma's scan runs on the card."""
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.params import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 32), generator=gen)
+             for k in ("tokens", "labels")}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        rglru_ops.reset_launch_counts()
+        p = tree_map(lambda t: t.to(dev), params, torch.is_tensor)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        out[dev] = value_and_grad(Model(cfg, dev), p, b)
+        assert ops.LAUNCHES["flash_attention"] == 0
+        if dev == "cuda" and arch == "recurrentgemma-2b":
+            assert rglru_ops.LAUNCHES["rglru_scan"] > 0
+    (l_cpu, _), g_cpu = out["cpu"]
+    (l_gpu, _), g_gpu = out["cuda"]
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
+    g_cpu = tree_leaves(g_cpu, torch.is_tensor)
+    g_gpu = tree_leaves(g_gpu, torch.is_tensor)
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu)
+    for a, b in zip(g_gpu, g_cpu):
+        scale = max(b.abs().max().item(), floor)
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale
+
+
+def _plain_norm(p, x, kind):
+    """The norm as serving computed it before it became a Function."""
+    from repro_torch.models.layers import _row_stats
+    dt = x.dtype
+    mean, inv = _row_stats(x, kind)
+    if kind == "rmsnorm":
+        return x * inv.to(dt) * p["scale"].to(dt)
+    xhat = (x - mean.to(dt)) * inv.to(dt)
+    return xhat * p["scale"].to(dt) + p["bias"].to(dt)
+
+
+def test_serving_tokens_unchanged_by_the_norm_function(cuda, monkeypatch):
+    """bf16 prefill and decode logits on the card are bit-equal with the
+    norm Function and with the plain formula it replaced."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import transformer
+    cfg = get_smoke_config("qwen2-0.5b")
+    m = Model(cfg, "cuda")
+    params = m.prepare_params(m.init(torch.Generator("cuda").manual_seed(0)))
+    tokens = torch.randint(0, cfg.vocab, (2, 20), device=cuda)
+
+    def serve():
+        with torch.no_grad():
+            cache = m.init_cache(2, 32)
+            logits, cache = m.prefill(params, {"tokens": tokens}, cache)
+            outs = [logits]
+            for _ in range(4):
+                logits, cache = m.decode_step(params, cache,
+                                              logits.argmax(-1))
+                outs.append(logits)
+        return torch.stack(outs)
+
+    with_function = serve()
+    monkeypatch.setattr(transformer, "apply_norm", _plain_norm)
+    monkeypatch.setattr(model_mod, "apply_norm", _plain_norm)
+    assert torch.equal(serve(), with_function)
