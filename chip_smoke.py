@@ -2829,7 +2829,7 @@ def check_scan_grad(card: str) -> dict:
     plain_ms = _time_ms(lambda i: _plain_scan_backward(*inputs[i]),
                         n_layers, iters=1)
     n = b * t * c
-    io_bytes = n * 4 * 6            # a, x, h, g read; da, dx written
+    io_bytes = n * 4 * 5            # a, h, g read; da, dx written
     t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
     t_ops = 3 * n / FP32_FLOPS_PER_S * 1e3
     entry = dict(shape=f"B={b}, T={t}, C={c} fp32", max_abs_err=err, ms=ms,
@@ -3024,10 +3024,12 @@ def train_recurrentgemma(card: str) -> dict:
     (8, 512).  Gates: finite loss and grad norm; ``rglru_scan`` launched
     as often as the remat structure says (``remat_forward_counts``: each
     RG-LRU layer's forward runs, plus its backward's reverse-time call,
-    per step); no flash launch."""
+    per step), the backward's calls counted apart (``scan_backward``: one
+    per RG-LRU layer and step); no flash launch."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels.rglru import ops as rglru_ops
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import remat_forward_counts
@@ -3039,6 +3041,7 @@ def train_recurrentgemma(card: str) -> dict:
     per_step = [n + 1 for n, d in zip(remat_forward_counts(plan), descs)
                 if d.kind == "rglru"]
     expected = RG_TRAIN_STEPS * sum(per_step)
+    expected_backward = RG_TRAIN_STEPS * len(per_step)
     _free_card()
     opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, RG_TRAIN_STEPS))
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -3059,6 +3062,7 @@ def train_recurrentgemma(card: str) -> dict:
         norms.append(float(m["grad_norm"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts()
+    backward = rglru_ops.BACKWARD_LAUNCHES["scan_backward"]
     memory = _memory()
     del params, state
     _free_card()
@@ -3069,16 +3073,20 @@ def train_recurrentgemma(card: str) -> dict:
         + ", ".join(f"{x:.1f}" for x in step_ms) + f" ms ({ms:.1f} median "
         f"after the first), {TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} "
         f"tokens/s, {memory}; rglru_scan launches {counts['rglru_scan']} "
-        f"(expected {expected}: {RG_TRAIN_STEPS} steps x {per_step}), "
+        f"(expected {expected}: {RG_TRAIN_STEPS} steps x {per_step}), of "
+        f"them scan_backward {backward} (expected {expected_backward}), "
         f"flash {counts['flash_attention']}; on {card}")
     if not _finite(*losses, *norms):
         raise AssertionError("recurrentgemma-2b training: non-finite loss "
                              "or grad norm")
-    if counts["rglru_scan"] != expected or counts["flash_attention"]:
+    if counts["rglru_scan"] != expected or counts["flash_attention"] \
+            or backward != expected_backward:
         raise AssertionError(f"recurrentgemma-2b training launches "
-                             f"{counts}, expected rglru_scan {expected}")
+                             f"{counts}, scan_backward {backward}, expected "
+                             f"rglru_scan {expected}, scan_backward "
+                             f"{expected_backward}")
     return dict(ms=ms, memory=memory, launches=counts["rglru_scan"],
-                backward_launches=RG_TRAIN_STEPS * len(per_step))
+                backward_launches=backward)
 
 
 def train_smoke_card_vs_cpu(card: str) -> None:

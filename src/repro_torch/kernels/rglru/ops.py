@@ -14,9 +14,10 @@ Under grad mode, with an input that requires grad, the scan runs as an
 ``autograd.Function`` (``_ScanFn``): the gradient of ``h_t = a_t
 h_{t-1} + x_t`` is the same recurrence in reverse time, ``d_t = g_t +
 a_{t+1} d_{t+1}``, with ``dx = d`` and ``da_t = d_t h_{t-1}`` (``h_0 =
-0``), so the backward is one more call of the same kernel (counted like
-any other) on time-reversed copies of ``a`` (shifted by one step) and of
-the output gradient.  On CPU tensors both directions run ``ref.py``.
+0``), so the backward is one more call of the same kernel (counted in
+``LAUNCHES`` like any other, and in ``BACKWARD_LAUNCHES`` too) on
+time-reversed copies of ``a`` (shifted by one step) and of the output
+gradient.  On CPU tensors both directions run ``ref.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from repro_torch.kernels.rglru.ref import rglru_scan_ref
 #: kernel launches since the last ``reset_launch_counts()``; plain-version
 #: calls on CPU tensors do not count
 LAUNCHES = {"rglru_scan": 0}
+#: of those, the launches made by ``scan_backward``
+BACKWARD_LAUNCHES = {"scan_backward": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the H100's SMs, and the blocks per SM the chunk plan aims for
@@ -46,8 +49,9 @@ MAX_CHUNKS = 64
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def scan_chunks(b: int, t: int, c: int):
@@ -104,14 +108,14 @@ def scan_backward(a, h, g, x_dtype):
     # reversed in time, step t' = T-1-t carries a_{t+1}: the first
     # reversed step (t = T-1) has no successor, so its factor is 0
     a_rev = F.pad(a.flip(1)[:, :-1], (0, 0, 1, 0))
-    d = _scan(a_rev, g.float().flip(1)).flip(1)
+    d = _scan(a_rev, g.float().flip(1), backward=True).flip(1)
     h_prev = F.pad(h[:, :-1].float(), (0, 0, 1, 0))
     return (d * h_prev).to(a.dtype), d.to(x_dtype)
 
 
-def _scan(a, x):
+def _scan(a, x, backward: bool = False):
     """One call of the kernel (CUDA tensors) or of its plain version (CPU
-    tensors)."""
+    tensors); ``backward`` marks ``scan_backward``'s call for its count."""
     if a.device.type == "cpu" and x.device.type == "cpu":
         return rglru_scan_ref(a, x)
     if a.device.type != "cuda" or x.device != a.device:
@@ -142,4 +146,6 @@ def _scan(a, x):
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "rglru_scan", code)
     LAUNCHES["rglru_scan"] += 1
+    if backward:
+        BACKWARD_LAUNCHES["scan_backward"] += 1
     return out

@@ -1227,6 +1227,7 @@ def test_rglru_function_grads_match_plain(cuda, b, t, c, x_dtype):
     rglru_ops.reset_launch_counts()
     da, dx = torch.autograd.grad(rglru_ops.rglru_scan(a1, x1), (a1, x1), g)
     assert rglru_ops.LAUNCHES["rglru_scan"] == 2
+    assert rglru_ops.BACKWARD_LAUNCHES == {"scan_backward": 1}
     a2, x2 = a.clone().requires_grad_(), x.clone().requires_grad_()
     ea, ex = torch.autograd.grad(rglru_ref.rglru_scan_ref(a2, x2), (a2, x2),
                                  g)

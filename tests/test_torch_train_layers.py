@@ -22,6 +22,7 @@ from repro.models import layers as jl
 from repro.models import losses as jlosses
 from repro.models import recurrent as jrec
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru.ops import rglru_scan
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 from repro_torch.models import attention as tattn
@@ -168,15 +169,19 @@ def test_chunked_attention_grads_match_reference_at_1024():
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 def test_scan_function_grads_match_autograd_through_ref(xdtype):
     """da, dx of the Function (the reverse-time scan, ``ref.py`` both
-    ways on the CPU) against torch autograd through ``ref.py``."""
+    ways on the CPU) against torch autograd through ``ref.py``; the plain
+    version's calls are counted as no launch, either way."""
     gen = torch.Generator().manual_seed(4)
     a = (0.5 + 0.5 * torch.rand((2, 37, 24), generator=gen))
     x = torch.randn((2, 37, 24), generator=gen).to(xdtype)
     g = torch.randn((2, 37, 24), generator=gen).to(xdtype)
     a1, x1 = a.clone().requires_grad_(), x.clone().requires_grad_()
+    rglru_ops.reset_launch_counts()
     h = rglru_scan(a1, x1)
     assert h.dtype == xdtype and h.grad_fn is not None
     da, dx = torch.autograd.grad(h, (a1, x1), g)
+    assert rglru_ops.LAUNCHES == {"rglru_scan": 0}
+    assert rglru_ops.BACKWARD_LAUNCHES == {"scan_backward": 0}
     a2, x2 = a.clone().requires_grad_(), x.clone().requires_grad_()
     ea, ex = torch.autograd.grad(rglru_scan_ref(a2, x2), (a2, x2), g)
     assert da.dtype == torch.float32 and dx.dtype == xdtype

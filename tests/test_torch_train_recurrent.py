@@ -48,8 +48,8 @@ def test_scan_calls_per_step_follow_the_remat_structure(n_layers, remat,
     model = Model(cfg, device="cpu")
     calls = []
     scan = ops._scan
-    monkeypatch.setattr(ops, "_scan", lambda a, x: calls.append(1)
-                        or scan(a, x))
+    monkeypatch.setattr(ops, "_scan", lambda a, x, **kw: calls.append(1)
+                        or scan(a, x, **kw))
     params = model.init(torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     batch = {k: torch.randint(0, cfg.vocab, (2, 16), generator=gen)
