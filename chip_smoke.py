@@ -167,6 +167,32 @@ Phases (any failure exits non-zero, without the final result line):
    decode pair and the flash kernel at granite's and deepseek's decode
    caches and admission shapes, checked against their plain versions
    and timed beside SDPA (added to phase 12's cases).
+15. training: the RG-LRU scan's gradients against its plain version;
+   qwen2-0.5b at full width (20 steps, a resume after a failure, the six
+   ddp categories on a one-process NCCL group) and recurrentgemma-2b;
+   one fp32 train step card = CPU on six smoke configs.
+16. (run before 12, whose JSON line takes its kernel cases) the
+   encoder-decoder and embeddings-input paths, random weights from
+   ``torch.Generator`` seed 0 drawn on the card: seamless-m4t-large-v2
+   at full width and depth (24 + 24 layers, 1.37B parameters) prefills
+   8 rows over 4096 encoder frames and 8 prompt tokens, then 64 greedy
+   steps, bf16 (flash launched 72 times a prefill: encoder, decoder
+   self- and cross-attention; ragged decode 48 times a step: self and
+   cross); at fp32 over 512 frames, its prefill + decode chain equals one
+   full forward within ``CHAIN_REL_TOL``; then 3 train steps of (8, 512)
+   tokens over as many frames.  qwen2-vl-72b at full width cut to 8 of
+   its 80 layers (8.27B parameters) prefills 8 rows of 1024 embedding
+   positions (a 24 x 24 image grid, then text, M-RoPE), then 32 steps
+   fed embeddings on a contiguous and on a paged cache (pages of 64):
+   logits equal bit for bit, flash 8 a prefill, ragged or paged 8 a
+   step.  Prefill ms, decode tok/s and memory printed.  Both smoke
+   configs at fp32 card = CPU (tokens, logits, launches).  The wrappers
+   count every launch by (kernel, dtype, shape) at the launch
+   (``ops.SHAPE_LAUNCHES``); each key these runs launched, bf16 and
+   fp32, gets a case at that signature, checked against the plain
+   version and timed beside SDPA, its ``launches`` the key's count
+   (added to phase 12's cases); the phase fails if a key has no passing
+   case.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
@@ -1923,30 +1949,32 @@ def _time_graph_ms(fn, n_layers, iters=10, warmup=1):
 
 
 def _decode_case(shape, smax, cur_list, launches, n_layers=24,
-                 heads=(HKV, G, DH)):
-    """Both decode kernels at one cache shape: bf16, B rows at lengths
-    ``cur_list``, ``heads`` = (Hkv, G, dh), one cache per layer
-    (contiguous, and the same values scattered over scrambled pages of
-    64); each checked layer by layer against its plain version (per case
-    and per row), then timed eagerly and as a CUDA graph beside its plain
-    version and SDPA.  -> {kernel: case dict}."""
+                 heads=(HKV, G, DH),
+                 names=("ragged_decode", "paged_decode"),
+                 dtype="bfloat16", ps=64):
+    """The decode kernels ``names`` (both by default) at one cache shape:
+    ``dtype``, B rows at lengths ``cur_list``, ``heads`` = (Hkv, G, dh),
+    one cache per layer (contiguous, and for the paged kernel the same
+    values scattered over scrambled pages of ``ps``); each checked layer
+    by layer against its plain version (per case, and per row in bf16),
+    then timed eagerly and as a CUDA graph beside its plain version and
+    SDPA.  -> {kernel: case dict}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     hkv, g, dh = heads
     b = len(cur_list)
     gen = torch.Generator(device="cuda").manual_seed(smax)
-    dt = torch.bfloat16
+    dt = getattr(torch, dtype)
     cur = torch.tensor(cur_list, dtype=torch.int32, device="cuda")
     q = _rand(gen, (b, 1, hkv * g, dh), dt)
     caches = [(_rand(gen, (b, smax, hkv, dh), dt),
                _rand(gen, (b, smax, hkv, dh), dt)) for _ in range(n_layers)]
-    ps = 64
     max_pages = smax // ps
     perm = torch.randperm(b * max_pages, generator=gen, device="cuda")
     table = perm.reshape(b, max_pages).int()
     paged = []
-    for k, v in caches:
+    for k, v in caches if "paged_decode" in names else ():
         kp, vp = torch.empty_like(k), torch.empty_like(v)
         kp.view(b * max_pages, ps, hkv, dh)[perm] = \
             k.reshape(b * max_pages, ps, hkv, dh)
@@ -1970,7 +1998,7 @@ def _decode_case(shape, smax, cur_list, launches, n_layers=24,
     flops = 4 * n_keys * hkv * g * dh
     chunk, n_split = ops.decode_splits(smax)
     cases = {}
-    for name in ("ragged_decode", "paged_decode"):
+    for name in names:
         if name == "ragged_decode":
             def kern(i):
                 return ops.flash_decode_attention(q, *caches[i], cur)
@@ -1990,7 +2018,7 @@ def _decode_case(shape, smax, cur_list, launches, n_layers=24,
         for i in range(n_layers):
             expect, out = plain(i), kern(i)
             e = (out.float() - expect.float()).abs().max().item()
-            r = row_error(out, expect)
+            r = row_error(out, expect) if dt == torch.bfloat16 else 0.0
             err, tol, rows = max(err, e), min(tol, tolerance(expect)), \
                 max(rows, r)
             if not (e <= tolerance(expect) and r <= BF16_REL_TOL):
@@ -2128,19 +2156,22 @@ FLASH_TIMED = (("qwen2-0.5b", 1, 4096, 14, 2, 64, 0),
 
 
 def _flash_case(gen, model, b, s, hq, hkv, dh, window, launches,
-                n_inputs=4):
-    """The flash kernel at one prefill shape, bf16, causal, ``n_inputs``
-    inputs in turn: checked against its plain version (per case and per
-    row), timed beside it and ``scaled_dot_product_attention``
+                n_inputs=4, causal=True, sk=None, dtype="bfloat16"):
+    """The flash kernel at one prefill shape, ``dtype``, ``s`` queries
+    over ``sk`` keys (default ``s``), causal or not, ``n_inputs`` inputs
+    in turn: checked against its plain version (per case, and per row in
+    bf16), timed beside it and ``scaled_dot_product_attention``
     (``is_causal``, or a boolean mask for the window).  -> case dict."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    dt = torch.bfloat16
+    dt = getattr(torch, dtype)
+    bf16 = dt == torch.bfloat16
+    sk = sk or s
     inputs = [(_rand(gen, (b, s, hq, dh), dt),
-               _rand(gen, (b, s, hkv, dh), dt),
-               _rand(gen, (b, s, hkv, dh), dt)) for _ in range(n_inputs)]
-    kw = dict(causal=True, window=window)
+               _rand(gen, (b, sk, hkv, dh), dt),
+               _rand(gen, (b, sk, hkv, dh), dt)) for _ in range(n_inputs)]
+    kw = dict(causal=causal, window=window)
     pos = torch.arange(s, device="cuda")
     allowed = (pos[None, :] <= pos[:, None]) & \
         (pos[None, :] > pos[:, None] - window)
@@ -2155,13 +2186,13 @@ def _flash_case(gen, model, b, s, hq, hkv, dh, window, launches,
         q, k, v = (t.transpose(1, 2) for t in inputs[i])
         return F.scaled_dot_product_attention(
             q, k, v, attn_mask=allowed if window else None,
-            is_causal=not window, enable_gqa=True).transpose(1, 2)
+            is_causal=causal and not window, enable_gqa=True).transpose(1, 2)
 
     err, tol, rows = 0.0, float("inf"), 0.0
     for i in range(n_inputs):
         expect, out = plain(i), kern(i)
         e = (out.float() - expect.float()).abs().max().item()
-        r = row_error(out, expect)
+        r = row_error(out, expect) if bf16 else 0.0
         err, tol = max(err, e), min(tol, tolerance(expect))
         rows = max(rows, r)
         if not (e <= tolerance(expect) and r <= BF16_REL_TOL):
@@ -2174,14 +2205,22 @@ def _flash_case(gen, model, b, s, hq, hkv, dh, window, launches,
     ms = _time_ms(kern, n_inputs)
     plain_ms = _time_ms(plain, n_inputs, iters=2)
     lib_ms = _time_ms(sdpa, n_inputs)
-    pairs = b * sum(min(t + 1, window) if window else t + 1
-                    for t in range(s))
+    if causal:
+        pairs = b * sum(min(t + 1, window) if window else t + 1
+                        for t in range(s))
+    else:
+        pairs = b * s * sk
     flops = 4 * pairs * dh * hq
-    io_bytes = 2 * b * (s * hq * dh + s * hkv * dh) * dt.itemsize
+    io_bytes = 2 * b * (s * hq * dh + sk * hkv * dh) * dt.itemsize
     t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    case = dict(model=model, shape=f"({b}, {s}, {hq}/{hkv}, {dh}) causal"
-                f"{f' window {window}' if window else ''} bf16",
+    # bf16 runs the tensor-core body, fp32 the SIMT one
+    peak = "bf16 tensor-core" if bf16 else "fp32 FMA"
+    t_ops = flops / (BF16_FLOPS_PER_S if bf16 else FP32_FLOPS_PER_S) * 1e3
+    span = f"{s}" if sk == s else f"{s} -> {sk}"
+    case = dict(model=model, shape=f"({b}, {span}, {hq}/{hkv}, {dh}) "
+                f"{'causal' if causal else 'non-causal'}"
+                f"{f' window {window}' if window else ''} "
+                f"{'bf16' if bf16 else 'fp32'}",
                 launches=launches, max_abs_err=err, max_row_rel_err=rows,
                 ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2189,7 +2228,7 @@ def _flash_case(gen, model, b, s, hq, hkv, dh, window, launches,
     log(f"flash_attention at {case['shape']} ({model}): {ms * 1e3:.1f} "
         f"us/call, bound {case['bound_ms'] * 1e3:.1f} us "
         f"({case['bound_by']}: {flops / 1e9:.2f} GFLOP over "
-        f"{pairs} unmasked pairs at the bf16 tensor-core peak; "
+        f"{pairs} unmasked pairs at the {peak} peak; "
         f"{flops / FP32_FLOPS_PER_S * 1e6:.0f} us at the fp32 FMA peak; "
         f"{io_bytes / 1e6:.1f} MB), plain {plain_ms * 1e3:.1f} us, SDPA "
         f"{lib_ms * 1e3:.1f} us (max abs err vs plain {lib_err:.3e}), "
@@ -2731,7 +2770,8 @@ FAIL_AT, DDP_STEPS, RG_TRAIN_STEPS = 13, 3, 5
 SCAN_GRAD_SHAPES = ((1, 2048, 2560), (8, 512, 2560))
 #: the smoke configs whose fp32 train step must be the CPU's
 TRAIN_SMOKE_ARCHS = ("qwen2-0.5b", "recurrentgemma-2b",
-                     "granite-moe-1b-a400m", "xlstm-1.3b")
+                     "granite-moe-1b-a400m", "xlstm-1.3b",
+                     "seamless-m4t-large-v2", "qwen2-vl-72b")
 #: checkpoints of the training runs (removed after each run)
 TRAIN_DIR = ROOT / "build" / "train"
 
@@ -3091,11 +3131,13 @@ def train_recurrentgemma(card: str) -> dict:
 
 def train_smoke_card_vs_cpu(card: str) -> None:
     """One train step's loss and gradients (``value_and_grad``) at fp32
-    on the smoke configs of ``TRAIN_SMOKE_ARCHS``, (2, 32) batches, card
-    against CPU: the loss within 1e-5 relative, each gradient leaf within
-    1e-4 of its largest CPU magnitude, floored at 1e-3 of the model's
-    largest (a gradient that is exactly zero, as the sLSTM input-gate
-    bias's, holds rounding noise of about 1e-9 on both devices)."""
+    on the smoke configs of ``TRAIN_SMOKE_ARCHS``, (2, 32) batches (over
+    24 frames for the enc-dec model, embeddings for the embeddings-input
+    one), card against CPU: the loss within 1e-5 relative, each gradient
+    leaf within 1e-4 of its largest CPU magnitude, floored at 1e-3 of the
+    model's largest (a gradient that is exactly zero, as the sLSTM
+    input-gate bias's, holds rounding noise of about 1e-9 on both
+    devices)."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.steps import value_and_grad
@@ -3109,6 +3151,13 @@ def train_smoke_card_vs_cpu(card: str) -> None:
         gen = torch.Generator().manual_seed(1)
         batch = {k: torch.randint(0, cfg.vocab, (2, 32), generator=gen)
                  for k in ("tokens", "labels")}
+        if cfg.is_encdec:
+            batch["enc_embeds"] = torch.randn((2, 24, cfg.d_model),
+                                              generator=gen)
+        elif cfg.input_mode == "embeddings":
+            batch["embeds"] = torch.randn((2, 32, cfg.d_model),
+                                          generator=gen)
+            del batch["tokens"]
         out = {}
         for dev in ("cpu", "cuda"):
             out[dev] = value_and_grad(
@@ -3130,6 +3179,507 @@ def train_smoke_card_vs_cpu(card: str) -> None:
             bad.append(arch)
     if bad:
         raise AssertionError(f"card and CPU train steps differ: {bad}")
+
+
+# ----- phase 16 --------------------------------------------------------------
+
+#: seamless-m4t-large-v2's phase: rows, encoder frames (the reference's
+#: encoder length for enc-dec decode cells, ``ENC_STUB_LEN`` in
+#: ``repro/launch/shapes.py``), decoder prompt
+#: tokens, greedy steps, the decoder cache's length; the fp32 chain's
+#: frames, rows, prompt and tokens in all; training steps of (TRAIN_BATCH,
+#: TRAIN_SEQ) tokens over as many frames
+ENC_ROWS, ENC_LEN, DEC_PROMPT, ENC_STEPS, DEC_MAX_LEN = 8, 4096, 8, 64, 128
+CHAIN_ENC_LEN, CHAIN_ROWS, CHAIN_PROMPT, CHAIN_TOTAL = 512, 2, 8, 16
+ENC_TRAIN_STEPS = 3
+#: qwen2-vl-72b's phase: the layers kept of its 80 (the full depth's 144 GB
+#: of bf16 weights exceed the card), rows, the image grid's side, embedding
+#: positions a row (576 patches, then text), decode steps, page size, the
+#: cache's length (a multiple of the page size)
+VL_LAYERS, VL_ROWS, VL_GRID, VL_LEN, VL_STEPS = 8, 8, 24, 1024, 32
+VL_PAGE, VL_MAX_LEN = 64, 1088
+#: the chains' limit against the full forward (phase 16) and the CPU
+#: (smoke configs), times max |reference logit|: fp32 throughout, the
+#: kernels and plain attention sum in other orders
+CHAIN_REL_TOL = 1e-4
+#: the smoke configs' card = CPU check: rows, positions (and encoder
+#: frames) a row, cache length
+SMOKE_ROWS, SMOKE_FRAMES, SMOKE_MAX_LEN = 4, 24, 40
+
+def _vision_positions(rows, grid, length, device):
+    """(rows, length, 3) M-RoPE positions: the image's grid x grid patches
+    at (0, row, column), then text at (p, p, p) from p = grid on."""
+    import torch
+    n = grid * grid
+    patch = torch.arange(n, device=device)
+    image = torch.stack([torch.zeros_like(patch), patch // grid,
+                         patch % grid], -1)
+    p = grid + torch.arange(length - n, device=device)
+    pos = torch.cat([image, torch.stack([p, p, p], -1)])
+    return pos.expand(rows, length, 3).int().contiguous()
+
+
+def _attn_layers(cfg) -> int:
+    """Attention layers one prefill runs: the encoder's, the decoder's
+    self-attention and, in an enc-dec model, its cross-attention."""
+    return cfg.n_enc_layers + cfg.n_layers * (2 if cfg.is_encdec else 1)
+
+
+def read_shape_counts() -> dict:
+    """The attention kernels' launches since the last ``reset_counts()``,
+    by (kernel, dtype, shape): ``ops.SHAPE_LAUNCHES``."""
+    from repro_torch.kernels.flash_attention import ops
+    return dict(ops.SHAPE_LAUNCHES)
+
+
+def _collect(launched: dict, label: str) -> None:
+    """Add the launches by shape since the last reset to ``launched``
+    ({key: [count, set of the runs that launched it]})."""
+    for key, n in read_shape_counts().items():
+        entry = launched.setdefault(key, [0, set()])
+        entry[0] += n
+        entry[1].add(label)
+
+
+def _warm_prefill(prefill) -> float:
+    """Run ``prefill()`` once before the measured prefill (its shapes'
+    first call: cuBLAS's choices, the allocator's first blocks, which the
+    measured call reuses) and drop what it made; -> its ms."""
+    _sync()
+    t0 = time.perf_counter()
+    prefill()
+    _sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _serve_seamless(model, weights, card, bad, launched) -> dict:
+    """Prefill of ENC_ROWS rows over ENC_LEN frames and DEC_PROMPT
+    tokens, then ENC_STEPS greedy steps, bf16: flash launched for every
+    attention layer of the prefill, ragged decode for the decoder's
+    self- and cross-attention at every step."""
+    import torch
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    frames = _rand(gen, (ENC_ROWS, ENC_LEN, cfg.d_model), torch.bfloat16)
+    tokens = torch.randint(1, cfg.vocab, (ENC_ROWS, DEC_PROMPT),
+                           generator=gen, device="cuda")
+    inputs = {"enc_embeds": frames, "tokens": tokens}
+    cold_ms = _warm_prefill(lambda: model.prefill(
+        weights, inputs, model.init_cache(ENC_ROWS, DEC_MAX_LEN,
+                                          enc_len=ENC_LEN)))
+    live = fresh_peak()
+    cache = model.init_cache(ENC_ROWS, DEC_MAX_LEN, enc_len=ENC_LEN)
+    reset_counts()
+    _sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(weights, inputs, cache)
+    _sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = read_counts()
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(ENC_STEPS):
+        tok = logits.argmax(-1).int()
+        toks.append(tok)
+        logits, cache = model.decode_step(weights, cache, tokens=tok)
+    _sync()
+    decode_s = time.perf_counter() - t0
+    counts = read_counts()
+    _collect(launched, "seamless-m4t-large-v2 bf16")
+    toks = torch.stack(toks)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    flash = _attn_layers(cfg)
+    ragged = 2 * cfg.n_layers * ENC_STEPS
+    tok_s = ENC_ROWS * ENC_STEPS / decode_s
+    del cache
+    log(f"seamless-m4t-large-v2 bf16 ({cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers): prefill of {ENC_ROWS} rows over {ENC_LEN} frames and "
+        f"{DEC_PROMPT} tokens {prefill_ms:.1f} ms (the shapes' first call "
+        f"{cold_ms:.1f} ms; launches {after_prefill}, flash expected "
+        f"{flash}); {ENC_STEPS} greedy steps, decode "
+        f"{tok_s:.1f} tok/s ({decode_s * 1e3 / ENC_STEPS:.2f} ms a step; "
+        f"launches {counts}, ragged expected {ragged}); "
+        f"max_memory_allocated {peak:.2f} GiB, max_memory_reserved "
+        f"{reserved:.2f} GiB ({live:.2f} GiB live before); on {card}")
+    if after_prefill["flash_attention"] != flash or sum(
+            after_prefill.values()) != flash:
+        bad.append(f"seamless prefill launches {after_prefill}")
+    if counts["ragged_decode"] != ragged or counts["paged_decode"] or \
+            counts["flash_attention"] != flash:
+        bad.append(f"seamless decode launches {counts}")
+    if not (bool(torch.isfinite(logits).all()) and
+            bool(((toks >= 0) & (toks < cfg.vocab)).all())):
+        bad.append("seamless: non-finite logits or tokens out of range")
+    return dict(prefill_ms=prefill_ms, cold_ms=cold_ms, tok_s=tok_s,
+                peak=peak, reserved=reserved)
+
+
+def _seamless_chain_fp32(cfg, params, card, bad, launched) -> None:
+    """fp32, CHAIN_ROWS rows over CHAIN_ENC_LEN frames: a prefill of
+    CHAIN_PROMPT tokens and decode steps over the rest of CHAIN_TOTAL
+    (the kernels) give the logits of one full forward over all of them
+    (mode "train": plain attention), within CHAIN_REL_TOL of its largest
+    logit: the reference's ``test_decode_matches_forward``."""
+    import torch
+    from repro_torch.models import Model
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = Model(cfg32, "cuda")
+    w32 = model.prepare_params(params)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    frames = _rand(gen, (CHAIN_ROWS, CHAIN_ENC_LEN, cfg.d_model),
+                   torch.float32)
+    tokens = torch.randint(1, cfg.vocab, (CHAIN_ROWS, CHAIN_TOTAL),
+                           generator=gen, device="cuda")
+    with torch.no_grad():
+        h, _, _ = model.forward(w32, {"enc_embeds": frames, "tokens": tokens},
+                                mode="train")
+        full = model._logits(w32, h)
+    reset_counts()
+    cache = model.init_cache(CHAIN_ROWS, CHAIN_TOTAL + 2,
+                             enc_len=CHAIN_ENC_LEN)
+    logits, cache = model.prefill(
+        w32, {"enc_embeds": frames, "tokens": tokens[:, :CHAIN_PROMPT]},
+        cache)
+    chain = [logits]
+    for t in range(CHAIN_PROMPT, CHAIN_TOTAL - 1):
+        logits, cache = model.decode_step(w32, cache, tokens=tokens[:, t])
+        chain.append(logits)
+    counts = read_counts()
+    _collect(launched, "seamless-m4t-large-v2 fp32 chain")
+    expect = full[:, CHAIN_PROMPT - 1:CHAIN_TOTAL - 1]
+    err = (torch.stack(chain, 1) - expect).abs().max().item()
+    limit = CHAIN_REL_TOL * expect.abs().max().item()
+    log(f"seamless-m4t-large-v2 fp32 chain ({CHAIN_ROWS} rows, "
+        f"{CHAIN_ENC_LEN} frames, prefill {CHAIN_PROMPT} tokens, "
+        f"{CHAIN_TOTAL - 1 - CHAIN_PROMPT} steps) vs one full forward: max "
+        f"abs err {err:.3e} (limit {limit:.3e}); launches {counts}; on "
+        f"{card}")
+    if not err <= limit or counts["flash_attention"] != _attn_layers(cfg):
+        bad.append(f"seamless fp32 chain: err {err} > {limit} or "
+                   f"launches {counts}")
+
+
+def _train_seamless(model, params, card, bad) -> dict:
+    """ENC_TRAIN_STEPS steps of ``make_train_step`` (remat, AdamW) at
+    (TRAIN_BATCH, TRAIN_SEQ) decoder tokens over as many frames, bf16
+    compute, fp32 leaves: finite losses and grad norms, no kernel
+    launch (training takes the plain attention)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    batch = {"enc_embeds": _rand(gen, (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                                 torch.bfloat16)}
+    for key in ("tokens", "labels"):
+        batch[key] = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                                   generator=gen, device="cuda")
+    opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, ENC_TRAIN_STEPS))
+    state = opt.init(params)
+    step = make_train_step(model, opt, remat=True)
+    fresh_peak()
+    reset_counts()
+    losses, norms, step_ms = [], [], []
+    for _ in range(ENC_TRAIN_STEPS):
+        _sync()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    memory = _memory()
+    del state
+    log(f"seamless-m4t-large-v2 train ({ENC_TRAIN_STEPS} steps of "
+        f"({TRAIN_BATCH}, {TRAIN_SEQ}) tokens over as many frames): losses "
+        f"{losses}, grad norms {norms}; steps "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + f" ms; {memory}; "
+        f"launches {counts}; on {card}")
+    if not _finite(*losses, *norms) or sum(counts.values()):
+        bad.append(f"seamless training: losses {losses}, launches {counts}")
+    return dict(ms=min(step_ms[1:]), step_ms=step_ms, memory=memory)
+
+
+def _pages_of(model, cache, gen):
+    """A paged copy of the prefilled per-slot ``cache``: its rows split
+    into pages of VL_PAGE scattered over one scrambled permutation of the
+    pool, with the page table that maps them back."""
+    import torch
+    rows = cache["idx"].shape[0]
+    max_pages = VL_MAX_LEN // VL_PAGE
+    paged = model.init_cache(rows, VL_MAX_LEN, per_slot=True,
+                             page_size=VL_PAGE, n_pages=rows * max_pages)
+    perm = torch.randperm(rows * max_pages, generator=gen, device="cuda")
+    for src, dst in zip(cache["stack"]["body"], paged["stack"]["body"]):
+        for name in ("k", "v"):
+            s = src["attn"][name]
+            dst["attn"][name][:, perm] = s.reshape(
+                s.shape[0], rows * max_pages, VL_PAGE, *s.shape[3:])
+    paged["pt"] = perm.reshape(rows, max_pages).int()
+    paged["idx"] = cache["idx"].clone()
+    return paged
+
+
+def _serve_qwen2_vl(card, bad, launched) -> dict:
+    """qwen2-vl-72b at full width, cut to VL_LAYERS layers, bf16: a
+    prefill of VL_ROWS rows of VL_LEN embedding positions (the image grid
+    then text, M-RoPE), then VL_STEPS steps fed embeddings on the
+    contiguous cache and on a paged copy of it: every step's logits equal
+    bit for bit, flash launched once a layer in the prefill, ragged (or
+    paged) decode once a layer a step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"),
+                              n_layers=VL_LAYERS)
+    log(f"qwen2-vl-72b: full width, cut to {VL_LAYERS} of 80 layers")
+    model = Model(cfg, "cuda")
+    params = _family_weights(cfg, card)
+    weights = model.prepare_params(params)
+    del params
+    _free_card()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    embeds = _rand(gen, (VL_ROWS, VL_LEN, cfg.d_model), torch.bfloat16)
+    steps = _rand(gen, (VL_STEPS, VL_ROWS, cfg.d_model), torch.bfloat16)
+    pos = _vision_positions(VL_ROWS, VL_GRID, VL_LEN, "cuda")
+    inputs = {"embeds": embeds, "positions": pos}
+    cold_ms = _warm_prefill(lambda: model.prefill(
+        weights, inputs, model.init_cache(VL_ROWS, VL_MAX_LEN,
+                                          per_slot=True)))
+    live = fresh_peak()
+    cache = model.init_cache(VL_ROWS, VL_MAX_LEN, per_slot=True)
+    reset_counts()
+    _sync()
+    t0 = time.perf_counter()
+    _, cache = model.prefill(weights, inputs, cache)
+    _sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_counts = read_counts()
+    _collect(launched, "qwen2-vl-72b bf16 prefill")
+    runs = {}
+    for name, c in (("paged", _pages_of(model, cache, gen)),
+                    ("contiguous", cache)):
+        reset_counts()
+        outs = []
+        _sync()
+        t0 = time.perf_counter()
+        for e in steps:
+            logits, c = model.decode_step(weights, c, embeds=e)
+            outs.append(logits)
+        _sync()
+        decode_s = time.perf_counter() - t0
+        runs[name] = dict(outs=outs, counts=read_counts(),
+                          tok_s=VL_ROWS * VL_STEPS / decode_s)
+        _collect(launched, f"qwen2-vl-72b bf16 {name}")
+        del c
+    del cache
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        runs["contiguous"]["outs"], runs["paged"]["outs"]))
+    same = all(torch.equal(a, b) for a, b in zip(
+        runs["contiguous"]["outs"], runs["paged"]["outs"]))
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in runs["contiguous"]["outs"])
+    expect = cfg.n_layers * VL_STEPS
+    log(f"qwen2-vl-72b bf16 ({cfg.n_layers} layers, "
+        f"{model.n_params() / 1e9:.2f}B parameters): prefill of {VL_ROWS} "
+        f"rows of {VL_LEN} positions ({VL_GRID} x {VL_GRID} patches, then "
+        f"text) {prefill_ms:.1f} ms (the shapes' first call {cold_ms:.1f} "
+        f"ms; launches {prefill_counts}); "
+        f"{VL_STEPS} steps fed embeddings: contiguous "
+        f"{runs['contiguous']['tok_s']:.1f} tok/s (launches "
+        f"{runs['contiguous']['counts']}), paged (pages of {VL_PAGE}) "
+        f"{runs['paged']['tok_s']:.1f} tok/s (launches "
+        f"{runs['paged']['counts']}); expected {expect} a run; logits "
+        f"equal bit for bit {same} (max abs diff {diff:.3e}); "
+        f"max_memory_allocated {peak:.2f} GiB, max_memory_reserved "
+        f"{reserved:.2f} GiB ({live:.2f} GiB live before); on {card}")
+    if prefill_counts["flash_attention"] != cfg.n_layers or \
+            sum(prefill_counts.values()) != cfg.n_layers:
+        bad.append(f"qwen2-vl prefill launches {prefill_counts}")
+    if runs["contiguous"]["counts"] != dict(
+            prefill_counts, flash_attention=0, ragged_decode=expect) or \
+            runs["paged"]["counts"] != dict(
+                prefill_counts, flash_attention=0, paged_decode=expect):
+        bad.append(f"qwen2-vl decode launches "
+                   f"{[r['counts'] for r in runs.values()]}")
+    if not (same and finite):
+        bad.append(f"qwen2-vl: contiguous and paged logits differ "
+                   f"({diff}) or are not finite")
+    del weights
+    _free_card()
+    return dict(prefill_ms=prefill_ms, cold_ms=cold_ms, peak=peak,
+                reserved=reserved,
+                tok_s={k: r["tok_s"] for k, r in runs.items()})
+
+
+def _smoke_inputs(cfg, rows, length, gen):
+    """A CPU batch of the smoke config's kind: ``enc_embeds`` of
+    ``length`` frames and ``length`` tokens (enc-dec), or ``embeds`` with
+    a 4 x 4 image grid's positions (embeddings input); and the decode
+    steps' embeddings (embeddings input, else None)."""
+    import torch
+    if cfg.is_encdec:
+        return {"enc_embeds": torch.randn((rows, length, cfg.d_model),
+                                          generator=gen),
+                "tokens": torch.randint(1, cfg.vocab, (rows, length),
+                                        generator=gen)}, None
+    if cfg.input_mode == "embeddings":
+        grid = 4
+        return ({"embeds": torch.randn((rows, length, cfg.d_model),
+                                       generator=gen),
+                 "positions": _vision_positions(rows, grid, length, "cpu")},
+                torch.randn((8, rows, cfg.d_model), generator=gen))
+
+
+def _encdec_embeds_smoke_card_vs_cpu(card, bad, launched) -> None:
+    """Phase 7's check for the two smoke configs at fp32: a prefill of 4
+    rows of 24 positions, then 8 decode steps (greedy tokens fed back, or
+    the steps' embeddings), on the card (kernels) and on the CPU (plain
+    versions): the same greedy tokens and logits within CHAIN_REL_TOL of
+    the CPU's largest, flash launched once an attention layer per
+    prefill and ragged decode once a decoder attention per step."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.models.params import tree_map
+    for arch in ("seamless-m4t-large-v2", "qwen2-vl-72b"):
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        batch, steps = _smoke_inputs(cfg, SMOKE_ROWS, SMOKE_FRAMES,
+                                     torch.Generator().manual_seed(2))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = Model(cfg, dev)
+            w = tree_map(lambda t: t.to(dev), params, torch.is_tensor)
+            reset_counts()
+            logits, cache = model.prefill(
+                w, {k: v.to(dev) for k, v in batch.items()},
+                model.init_cache(SMOKE_ROWS, SMOKE_MAX_LEN,
+                                 enc_len=SMOKE_FRAMES))
+            chain, toks = [logits.cpu()], []
+            for i in range(8):
+                if steps is None:
+                    tok = logits.argmax(-1).int()
+                    toks.append(tok.cpu())
+                    logits, cache = model.decode_step(w, cache, tokens=tok)
+                else:
+                    logits, cache = model.decode_step(
+                        w, cache, embeds=steps[i].to(dev))
+                    toks.append(logits.argmax(-1).cpu())
+                chain.append(logits.cpu())
+            out[dev] = (torch.stack(chain), torch.stack(toks),
+                        read_counts())
+        _collect(launched, f"{arch} smoke fp32")
+        (l_cpu, t_cpu, c_cpu), (l_card, t_card, c_card) = \
+            out["cpu"], out["cuda"]
+        err = (l_card - l_cpu).abs().max().item()
+        limit = CHAIN_REL_TOL * l_cpu.abs().max().item()
+        decoder_attn = cfg.n_layers * (2 if cfg.is_encdec else 1)
+        expect = dict(c_cpu, flash_attention=_attn_layers(cfg),
+                      ragged_decode=8 * decoder_attn)
+        log(f"{arch} smoke fp32, prefill + 8 steps: card (launches "
+            f"{c_card}) vs CPU (launches {c_cpu}): tokens equal "
+            f"{torch.equal(t_card, t_cpu)}, max abs logit err {err:.3e} "
+            f"(limit {limit:.3e}); on {card}")
+        if not (torch.equal(t_card, t_cpu) and err <= limit) or \
+                sum(c_cpu.values()) or c_card != expect:
+            bad.append(f"{arch} smoke: card vs CPU")
+
+
+#: caches per decode case and inputs per flash case of phase 16's shapes
+#: (a decode case walks one cache per input, as a step walks its layers)
+SHAPE_CASE_CACHES, SHAPE_CASE_INPUTS = 24, 4
+
+
+def _shape_case(key, launches, runs, full_caches, gen):
+    """The case of one (kernel, dtype, shape) key that phase 16's runs
+    launched ``launches`` times: the kernel at that signature against its
+    plain version, timed beside it and SDPA (``_flash_case``,
+    ``_decode_case``).  A decode cache whose capacity is in
+    ``full_caches`` (a cross cache: every row reads it whole) runs every
+    row at its full length; any other runs its rows at lengths spread
+    over the capacity, the last row full.  Every launch the case makes
+    must be at ``key`` itself.  -> case dict."""
+    name, dtype, shape = key
+    reset_counts()
+    if name == "flash_attention":
+        b, sq, sk, hq, hkv, dh, causal, window, softcap = shape
+        if softcap:
+            raise AssertionError(f"no case for softcap {softcap}: {key}")
+        case = _flash_case(gen, runs, b, sq, hq, hkv, dh, window, launches,
+                           n_inputs=SHAPE_CASE_INPUTS, causal=causal,
+                           sk=sk, dtype=dtype)
+    else:
+        b, capacity, hkv, g, dh, ps, softcap = shape
+        if softcap:
+            raise AssertionError(f"no case for softcap {softcap}: {key}")
+        cur = ([capacity - 1] * b if capacity in full_caches else
+               [capacity * (r + 1) // b - 1 for r in range(b)])
+        label = (f"B={b}, Smax={capacity}, Hkv={hkv}, G={g}, dh={dh}"
+                 f"{f', pages of {ps}' if ps else ''} {dtype} ({runs})")
+        case = _decode_case(label, capacity, cur, {name: launches},
+                            n_layers=SHAPE_CASE_CACHES, heads=(hkv, g, dh),
+                            names=(name,), dtype=dtype, ps=ps or 64)[name]
+    ran = read_shape_counts()
+    if set(ran) != {key}:
+        raise AssertionError(f"the case of {key} launched {ran}")
+    return dict(case, key=[name, dtype, list(shape)])
+
+
+def serve_encdec_embeds(card: str) -> dict:
+    """Phase 16: seamless-m4t-large-v2 at full width and depth (serve,
+    the fp32 chain, train), qwen2-vl-72b at full width cut to VL_LAYERS
+    layers (contiguous and paged), the smoke configs card = CPU; then one
+    case per (kernel, dtype, shape) key those runs launched, each checked
+    against its plain version and timed beside SDPA, its ``launches``
+    the key's count.  -> the runs' numbers and the cases for phase 12's
+    line."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    bad, launched = [], {}
+    _free_card()
+    cfg = get_config("seamless-m4t-large-v2")
+    model = Model(cfg, "cuda")
+    params = _family_weights(cfg, card)
+    weights = model.prepare_params(params)
+    seamless = _serve_seamless(model, weights, card, bad, launched)
+    del weights
+    _free_card()
+    _seamless_chain_fp32(cfg, params, card, bad, launched)
+    _free_card()
+    seamless["train"] = _train_seamless(model, params, card, bad)
+    del params
+    _free_card()
+    vl = _serve_qwen2_vl(card, bad, launched)
+    _encdec_embeds_smoke_card_vs_cpu(card, bad, launched)
+    if bad:
+        raise AssertionError("; ".join(bad))
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    full_caches = {ENC_LEN, CHAIN_ENC_LEN, SMOKE_FRAMES}
+    cases, missing = [], []
+    for key in sorted(launched, key=repr):
+        n, runs = launched[key]
+        try:
+            cases.append((key[0], _shape_case(
+                key, n, ", ".join(sorted(runs)), full_caches, gen)))
+        except Exception:
+            traceback.print_exc()
+            missing.append(key)
+        _free_card()
+    n_bf16 = sum(k[1] == "bfloat16" for k in launched)
+    log(f"phase 16 launched {len(launched)} (kernel, dtype, shape) keys "
+        f"({n_bf16} bf16, {len(launched) - n_bf16} fp32); held against "
+        f"their plain versions: {len(cases)}; without a passing case: "
+        f"{missing}")
+    if missing:
+        raise AssertionError(f"keys launched without a passing case: "
+                             f"{missing}")
+    return {"seamless": seamless, "qwen2-vl": vl, "cases": cases}
 
 
 def main() -> int:
@@ -3209,6 +3759,9 @@ def main() -> int:
                        train_recurrentgemma, card)
     phase("smoke configs' train step at fp32: card vs CPU",
           train_smoke_card_vs_cpu, card)
+    encdec = phase("encoder-decoder and embeddings input at full width: "
+                   "seamless-m4t-large-v2, qwen2-vl-72b (8 layers)",
+                   serve_encdec_embeds, card)
     kernels = rg_kernel = flash = None
     if served is not None and long is not None:
         runs, prompts = served[:2]
@@ -3229,14 +3782,18 @@ def main() -> int:
     if failed or kernels is None or rg_kernel is None or flash is None \
             or surface is None or fleet is None or planner is None \
             or family is None or scan_grad is None or trained is None \
-            or ddp is None or rg_trained is None:
+            or ddp is None or rg_trained is None or encdec is None:
         log(f"FAILED phases: {failed}")
         return 1
-    # the kernels at phase 14's shapes join their entries' cases
+    # the kernels at phase 14's shapes and at every key phase 16 launched
+    # join their entries' cases
     for entry in kernels:
         entry["cases"] += [family["decode"][m][entry["name"]]
                            for m in family["decode"]]
     flash["cases"] += family["flash"]
+    for entry in kernels + [flash]:
+        entry["cases"] += [case for name, case in encdec["cases"]
+                           if name == entry["name"]]
     # the scan's backward call: its launches on the training path
     rg_kernel["backward"] = dict(
         scan_grad, launches=rg_trained["backward_launches"])
@@ -3280,6 +3837,16 @@ def main() -> int:
             f"{name} {r['collectives']}" for name, r in ddp["rows"].items())
         + f"; recurrentgemma-2b {rg_trained['ms']:.1f} ms a step, "
         f"{rg_trained['memory']}; on {card}")
+    sm, vl = encdec["seamless"], encdec["qwen2-vl"]
+    log(f"phase 16: seamless-m4t-large-v2 prefill {sm['prefill_ms']:.1f} "
+        f"ms (first call {sm['cold_ms']:.1f}), decode {sm['tok_s']:.1f} "
+        f"tok/s, "
+        f"{sm['peak']:.2f} GiB; train {sm['train']['ms']:.1f} ms a step, "
+        f"{sm['train']['memory']}; qwen2-vl-72b (8 layers) prefill "
+        f"{vl['prefill_ms']:.1f} ms (first call {vl['cold_ms']:.1f}), decode "
+        f"contiguous "
+        f"{vl['tok_s']['contiguous']:.1f}, paged {vl['tok_s']['paged']:.1f} "
+        f"tok/s, {vl['peak']:.2f} GiB; on {card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,13 @@ there is no fallback.  The kernels are forward only: under grad mode a
 CUDA input that requires grad raises.  For a CPU tensor each runs its
 plain PyTorch version (``ref.py``).  Each wrapper counts its kernel launches in
 ``LAUNCHES``: one per wrapper call, though a decode call is two CUDA
-launches (the split pass and the combine pass).
+launches (the split pass and the combine pass); ``SHAPE_LAUNCHES``
+counts the same launches by the signature each ran at.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,6 +27,11 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
 #: kernel launches since the last ``reset_launch_counts()``; plain-version
 #: calls on CPU tensors do not count
 LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
+#: the same launches keyed by (kernel, dtype, shape): the shape is (B, Sq,
+#: Sk, Hq, Hkv, dh, causal, window, softcap) for ``flash_attention``, (B,
+#: capacity, Hkv, G, dh, page_size, softcap) for the decode pair (capacity
+#: Smax, or max_pages * page_size; page_size 0 for the contiguous cache)
+SHAPE_LAUNCHES: Dict[Tuple[str, str, tuple], int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DH = 256         # the largest head_dim of every attention kernel
@@ -44,6 +52,14 @@ def decode_splits(capacity: int):
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
+
+
+def _count(name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """One launch of kernel ``name`` at ``shape`` (see ``SHAPE_LAUNCHES``)."""
+    LAUNCHES[name] += 1
+    key = (name, str(dtype).removeprefix("torch."), shape)
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
 
 
 def _refuse_grad(name, *tensors) -> None:
@@ -135,7 +151,8 @@ def flash_decode_attention(q, k_cache, v_cache, cur_index, *,
             wide, _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "ragged_decode", code)
-    LAUNCHES["ragged_decode"] += 1
+    _count("ragged_decode", q.dtype,
+           (b, smax, hkv, g, dh, 0, float(softcap)))
     return out
 
 
@@ -171,7 +188,8 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table,
             _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "paged_decode", code)
-    LAUNCHES["paged_decode"] += 1
+    _count("paged_decode", q.dtype,
+           (b, max_pages * ps, hkv, g, dh, ps, float(softcap)))
     return out
 
 
@@ -240,5 +258,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             int(bool(causal)), int(window), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention", code)
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention", q.dtype, (b, sq, sk, hq, hkv, dh,
+                                        bool(causal), int(window),
+                                        float(softcap)))
     return out

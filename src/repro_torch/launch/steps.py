@@ -96,9 +96,14 @@ def make_prefill_step(model: Model, skip_future: bool = False):
 
 
 def make_decode_step(model: Model):
-    def decode_step(params, cache, tokens):
-        return model.decode_step(params, cache, tokens)
-
+    """-> decode_step(params, cache, tokens), or (params, cache, embeds)
+    for an embeddings-input model."""
+    if model.cfg.input_mode == "embeddings" and not model.cfg.is_encdec:
+        def decode_step(params, cache, embeds):
+            return model.decode_step(params, cache, embeds=embeds)
+    else:
+        def decode_step(params, cache, tokens):
+            return model.decode_step(params, cache, tokens=tokens)
     return decode_step
 
 

@@ -1,8 +1,11 @@
 """Model: config -> params / loss_fn / prefill / decode_step /
 decode_horizon.
 
-``repro.models.model`` for decoders of attention, RG-LRU, xLSTM and MoE
-blocks, in eager PyTorch on an explicit device.  Parameters are the same
+``repro.models.model`` in eager PyTorch on an explicit device: decoders
+of attention, RG-LRU, xLSTM and MoE blocks, an encoder-decoder (a
+bidirectional encoder over the caller's frame embeddings, a decoder with
+cross-attention) and embeddings input (the caller's embeddings instead of
+a token table, M-RoPE positions given or derived).  Parameters are the same
 tree as the reference's (``param_specs``).  Serving's
 ``prepare_params`` places them on the device in the compute dtype once,
 where the reference cast every weight on every call (the values are
@@ -15,6 +18,11 @@ the layers) or once up front (``cast_params_once``).
 Caches are dicts of tensors updated in place (see ``transformer``); the
 ``idx`` entry is replaced by a new tensor on every call, as in the
 reference.
+
+Batches: ``{"tokens", "labels"}`` for token models, ``{"embeds": (B, S,
+d), "labels", "positions": (B, S, 3) optional}`` for embeddings input,
+``{"enc_embeds": (B, Se, d), "tokens", "labels"}`` for an
+encoder-decoder.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from repro_torch.models.layers import (apply_norm, compute_dtype,
                                        head_matrix, norm_specs)
 from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.models.transformer import (ATTN_KINDS, BlockCtx,
-                                            apply_stack, check_slice,
+                                            apply_stack, fit_cross_cache,
                                             init_stack_cache, make_plan,
                                             stack_specs_tree)
 
@@ -52,15 +60,24 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = make_plan(cfg, cross=cfg.is_encdec)
-        check_slice(cfg)
+        self.enc_plan = (make_plan(cfg, n_layers=cfg.n_enc_layers)
+                         if cfg.is_encdec else None)
         self.dtype = compute_dtype(cfg)
 
     # ----- parameters ----------------------------------------------------
     def param_specs(self):
         cfg = self.cfg
-        return {"decoder": stack_specs_tree(cfg, self.plan),
-                "final_norm": norm_specs(cfg),
-                "embed": embed_specs(cfg)}
+        specs = {"decoder": stack_specs_tree(cfg, self.plan),
+                 "final_norm": norm_specs(cfg),
+                 "embed": embed_specs(cfg)}
+        if (cfg.input_mode != "tokens" and not cfg.is_encdec
+                and not cfg.tie_embeddings):
+            # the inputs are the caller's embeddings: only the LM head
+            specs["embed"] = {"head": specs["embed"]["head"]}
+        if cfg.is_encdec:
+            specs["encoder"] = stack_specs_tree(cfg, self.enc_plan)
+            specs["enc_final_norm"] = norm_specs(cfg)
+        return specs
 
     def init(self, generator: torch.Generator):
         """Fresh weights drawn from ``generator`` (the reference's init
@@ -94,6 +111,39 @@ class Model:
             return pos[..., None].expand(b, s, 3)
         return pos
 
+    def _inputs(self, params, batch):
+        """-> (x (B, S, d) in the compute dtype, positions): the token
+        embeddings, or the caller's ``embeds``; ``positions`` from the
+        batch when it has them."""
+        cfg = self.cfg
+        if cfg.is_encdec or cfg.input_mode == "tokens":
+            x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        else:
+            x = batch["embeds"].to(self.dtype)
+        pos = batch.get("positions")
+        if pos is None:
+            pos = self._positions(*x.shape[:2])
+        return x, pos
+
+    def _encode(self, params, batch, on_card: bool, remat: bool):
+        """The encoder over ``batch["enc_embeds"]``: bidirectional, at
+        positions 0..Se-1, with no cache (the reference's mode "train"),
+        then ``enc_final_norm``.  The caller decides what mode "train"
+        would: ``on_card`` runs the flash kernel (a prefill on the card),
+        otherwise the reference's attention; ``remat`` checkpoints the
+        stack (the reference does in training whatever ``loss_fn`` was
+        given)."""
+        cfg = self.cfg
+        enc_x = batch["enc_embeds"].to(self.dtype)
+        b, se = enc_x.shape[:2]
+        ctx = BlockCtx(cfg=cfg, mode="train",
+                       positions=self._positions(b, se),
+                       attn_fn=select_attention(cfg, se, on_card=on_card),
+                       causal=False)
+        h, _ = apply_stack(params["encoder"], enc_x, cfg, self.enc_plan, ctx,
+                           remat=remat)
+        return apply_norm(params["enc_final_norm"], h, cfg.norm)
+
     def forward(self, params, batch, *, mode="prefill", cache=None,
                 remat=False, skip_future=False, use_ragged_kernel=False,
                 decode_write_mask=None, step_active=None):
@@ -102,19 +152,26 @@ class Model:
         ``idx`` and leaves the recurrent state alone.  ``mode="train"``
         runs the reference's attention choice on every device (the flash
         kernel is forward only) and, with ``remat``, checkpoints the stack
-        as the reference does."""
+        as the reference does.  An enc-dec model runs its encoder unless
+        decoding; its prefill gives the cross caches the encoder's
+        length."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], batch["tokens"], cfg)
+        x, pos = self._inputs(params, batch)
         b, s = x.shape[:2]
-        pos = batch.get("positions")
-        if pos is None:
-            pos = self._positions(b, s)
+        on_card = x.device.type == "cuda" and mode != "train"
         cache = cache or {}
+        enc_out = None
+        if cfg.is_encdec and mode != "decode":
+            enc_out = self._encode(params, batch, on_card,
+                                   remat=mode == "train")
+            if cache:
+                fit_cross_cache(cache["stack"], enc_out.shape[1])
         ctx = BlockCtx(
             cfg=cfg, mode=mode, positions=pos,
             attn_fn=select_attention(
                 cfg, s, skip_future=skip_future and mode == "prefill",
-                on_card=x.device.type == "cuda" and mode != "train"),
+                on_card=on_card),
+            enc_out=enc_out,
             decode_idx=cache.get("idx"),
             window_cache=self.window_cache,
             ragged_kernel=use_ragged_kernel and mode == "decode",
@@ -179,12 +236,14 @@ class Model:
         return (all(d.kind in ATTN_KINDS for d in descs)
                 and cfg.attn_window == 0 and not cfg.is_encdec)
 
-    def init_cache(self, batch_size: int, max_len: int,
+    def init_cache(self, batch_size: int, max_len: int, enc_len: int = 0,
                    per_slot: bool = False, page_size: int = 0,
                    n_pages: int = 0):
-        """``per_slot`` makes ``idx`` a (B,) vector (continuous batching).
-        ``page_size > 0`` builds the paged cache with a sentinel-filled
-        page table ``pt`` of shape ``(B, max_len // page_size)``."""
+        """``enc_len`` sizes an enc-dec model's cross caches (the prefill
+        gives them the encoder's length whatever it was).  ``per_slot``
+        makes ``idx`` a (B,) vector (continuous batching).  ``page_size >
+        0`` builds the paged cache with a sentinel-filled page table
+        ``pt`` of shape ``(B, max_len // page_size)``."""
         if page_size > 0:
             if not self.supports_paged_cache:
                 raise ValueError(f"{self.cfg.name}: arch does not support "
@@ -194,6 +253,7 @@ class Model:
                                  f"and n_pages > 0 ({max_len}, "
                                  f"{page_size}, {n_pages})")
         stack = init_stack_cache(self.cfg, self.plan, batch_size, max_len,
+                                 enc_len=enc_len,
                                  window_cache=self.window_cache,
                                  page_size=page_size, n_pages=n_pages,
                                  device=self.device)
@@ -224,19 +284,27 @@ class Model:
             last = h[rows, last_index.long()]
         return self._logits(params, last), new_cache
 
-    def decode_step(self, params, cache, tokens, use_ragged_kernel=False,
-                    write_mask=None, step_active=None):
-        """One decode step.  tokens: (B,) int.  -> (logits (B,V) fp32,
-        new_cache).  With a per-slot cache each row decodes at its own
-        position.  ``write_mask`` ((B,) bool) gates the cache writes per
-        row; ``step_active`` (0-d bool tensor, default on) off makes the
-        step leave ``idx`` and the recurrent state as they were.  On a
-        CUDA device attention runs the CUDA kernels whatever
-        ``use_ragged_kernel`` says; on the CPU it picks the kernels' plain
-        versions (True) or ``attention_decode`` (False)."""
+    def decode_step(self, params, cache, tokens=None, embeds=None,
+                    use_ragged_kernel=False, write_mask=None,
+                    step_active=None):
+        """One decode step.  tokens: (B,) int, or embeds: (B, d) for
+        embeddings input (M-RoPE positions: ``idx`` on all three
+        streams).  -> (logits (B,V) fp32, new_cache).  An enc-dec decoder
+        attends over its cross caches.  With a per-slot cache each row
+        decodes at its own position.  ``write_mask`` ((B,) bool) gates the
+        cache writes per row; ``step_active`` (0-d bool tensor, default
+        on) off makes the step leave ``idx`` and the recurrent state as
+        they were.  On a CUDA device attention runs the CUDA kernels
+        whatever ``use_ragged_kernel`` says; on the CPU it picks the
+        kernels' plain versions (True) or ``attention_decode`` (False)."""
         cfg = self.cfg
         idx = cache["idx"]
-        b = tokens.shape[0]
+        if tokens is not None:
+            batch = {"tokens": tokens[:, None]}
+            b = tokens.shape[0]
+        else:
+            batch = {"embeds": embeds[:, None, :]}
+            b = embeds.shape[0]
         if idx.dim() == 1:
             pos = idx[:, None].int()
         else:
@@ -246,9 +314,10 @@ class Model:
         if step_active is None:
             step_active = torch.ones((), dtype=torch.bool,
                                      device=self.device)
+        batch["positions"] = pos
         h, new_cache, _ = self.forward(
-            params, {"tokens": tokens[:, None], "positions": pos},
-            mode="decode", cache=cache, use_ragged_kernel=use_ragged_kernel,
+            params, batch, mode="decode", cache=cache,
+            use_ragged_kernel=use_ragged_kernel,
             decode_write_mask=write_mask, step_active=step_active)
         return self._logits(params, h[:, 0, :]), new_cache
 
@@ -270,7 +339,10 @@ class Model:
         write mask is off), leaves ``idx`` and the state as they were, and
         leaves its trace row all-dead, exactly like a step the reference
         never ran.  ``n_steps`` (<= horizon) lets the caller stop earlier
-        when it knows the budgets run out; rows past it stay all-dead."""
+        when it knows the budgets run out; rows past it stay all-dead.
+        Token decoder-only models only, as in the reference."""
+        if self.cfg.input_mode != "tokens" or self.cfg.is_encdec:
+            raise ValueError("the fused horizon decodes token models")
         eos, has_eos = state["eos"], state["has_eos"]
         tok, remaining = state["tok"], state["remaining"]
         finished = state["finished"]

@@ -14,7 +14,9 @@ row per batch row, through views, so the stacked cache itself changes.
 Sliding-window layers of sub-quadratic models keep a ROLLING cache of
 ``min(max_len, window)`` rows, position ``t`` at row ``t % window``, as
 the reference does; RG-LRU and xLSTM blocks keep their conv and fp32
-state, written in place too.
+state, written in place too.  An enc-dec decoder's cross-attention
+caches hold the encoder's k and v, written whole by the prefill and read
+by every decode step.
 
 In train mode (no cache) the stack is differentiable and, with
 ``remat``, checkpointed as the reference's is (``apply_stack``); the MoE
@@ -109,22 +111,6 @@ def make_plan(cfg: ArchConfig, n_layers: Optional[int] = None,
 # Per-block specs / apply
 # --------------------------------------------------------------------------
 
-def check_slice(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet:
-    encoder-decoder models and embeddings input (forward paths of their
-    own, which the reference's serving engine refuses too) arrive with
-    the slice after training, ROADMAP Queue 1 item 5b."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: embeddings input arrives with the encoder-decoder "
-            f"and embeddings-input slice (ROADMAP Queue 1 item 5b)")
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models arrive with the "
-            f"encoder-decoder and embeddings-input slice (ROADMAP Queue 1 "
-            f"item 5b)")
-
-
 #: the recurrent blocks by kind (also their param and cache keys): specs,
 #: apply (updates its cache in place and takes ``step_active``), cache
 _RECURRENT = {
@@ -140,6 +126,9 @@ def block_specs(cfg: ArchConfig, desc: LayerDesc):
         s["attn"] = attn_specs(cfg)
     else:
         s[desc.kind] = _RECURRENT[desc.kind][0](cfg)
+    if desc.cross:
+        s["norm_cross"] = norm_specs(cfg)
+        s["cross"] = attn_specs(cfg, cross=True)
     if desc.ffn != "none":
         s["norm2"] = norm_specs(cfg)
         if desc.ffn == "moe":
@@ -158,6 +147,8 @@ class BlockCtx:
     positions: Any                    # (B,S) or (B,S,3)
     attn_fn: Any
     causal: bool = True
+    enc_out: Any = None               # (B, Se, d) encoder memory for
+    #                                   cross-attention (enc-dec)
     decode_idx: Any = None            # (B,) or scalar int32 cache index
     window_cache: bool = False        # rolling window KV cache
     ragged_kernel: bool = False       # CPU: decode via the kernels' plain
@@ -314,12 +305,42 @@ def _self_attention(p, h, ctx: BlockCtx, window: int, cache):
     return project_out(p, out, h.dtype)
 
 
+def _cross_attention(p, h, ctx: BlockCtx, cache):
+    """Decoder cross-attention over the encoder's memory: no qkv bias, no
+    RoPE, no mask.  In train and prefill k and v are projected from
+    ``ctx.enc_out`` and attended non-causally (``ctx.attn_fn``: the flash
+    kernel on the card); the prefill also writes them into the cross
+    cache, in place (its length is the encoder's: ``fit_cross_cache``).
+    A decode step attends over the whole cross cache, as the reference's
+    ``attention_decode(q, k, v, Se - 1)`` does: on the card (or on the
+    CPU with ``ragged_kernel``) through the ragged decode kernel with
+    every row's length ``Se - 1``."""
+    q = project_q(p, h, ctx.cfg)
+    if ctx.mode != "decode":
+        k, v = project_kv(p, ctx.enc_out, ctx.cfg)
+        out = ctx.attn_fn(q, k, v, causal=False, window=0, softcap=0.0)
+        if ctx.mode == "prefill" and cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+        return project_out(p, out, h.dtype)
+    k, v = cache["k"], cache["v"]
+    last = k.shape[1] - 1
+    if h.device.type == "cuda" or ctx.ragged_kernel:
+        cur = torch.full((q.shape[0],), last, dtype=torch.int32,
+                         device=q.device)
+        out = flash_decode_attention(q, k, v, cur)
+    else:
+        out = attention_decode(q, k, v, last)
+    return project_out(p, out, h.dtype)
+
+
 def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
-    """One block (attention or a recurrent cell, then its FFN: dense, MoE
-    or none); -> (x, aux): ``aux`` the MoE FFN's auxiliary loss (fp32
-    0-d), None for the other FFNs.  ``cache`` (the block's ``{"attn":
-    {"k", "v"}}``, or ``{kind: state}`` for a recurrent block) is updated
-    in place."""
+    """One block (attention or a recurrent cell, then cross-attention in
+    an enc-dec decoder, then its FFN: dense, MoE or none); -> (x, aux):
+    ``aux`` the MoE FFN's auxiliary loss (fp32 0-d), None for the other
+    FFNs.  ``cache`` (the block's ``{"attn": {"k", "v"}}``, or ``{kind:
+    state}`` for a recurrent block, and ``{"cross": {"k", "v"}}`` beside
+    either) is updated in place."""
     cfg = ctx.cfg
     h = apply_norm(p["norm1"], x, cfg.norm)
     key = "attn" if desc.kind in ATTN_KINDS else desc.kind
@@ -330,6 +351,11 @@ def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
     else:
         x = x + _RECURRENT[desc.kind][1](p[desc.kind], h, cfg, sub,
                                          step_active=ctx.step_active)
+    if desc.cross:
+        hc = apply_norm(p["norm_cross"], x, cfg.norm)
+        x = x + _cross_attention(p["cross"], hc, ctx,
+                                 cache["cross"] if cache is not None
+                                 else None)
     if desc.ffn == "none":
         return x, None
     h2 = apply_norm(p["norm2"], x, cfg.norm)
@@ -351,34 +377,61 @@ def stack_specs_tree(cfg: ArchConfig, plan: LayerPlan):
 
 
 def init_stack_cache(cfg: ArchConfig, plan: LayerPlan, batch: int,
-                     max_len: int, window_cache: bool = False,
-                     page_size: int = 0, n_pages: int = 0, device=None):
+                     max_len: int, enc_len: int = 0,
+                     window_cache: bool = False, page_size: int = 0,
+                     n_pages: int = 0, device=None):
     """Zeroed cache for the whole stack.  ``window_cache`` sizes the
     rolling caches of sliding-window layers at ``min(max_len, window)``.
     ``page_size > 0`` selects the paged layout: each attention layer's
     k/v become ``(n_pages, page_size, Hkv, dh)`` physical pages with no
-    batch axis."""
+    batch axis.  Cross-attention layers add ``"cross"`` k/v of
+    ``(batch, enc_len, Hkv, dh)``."""
     dt = compute_dtype(cfg)
+
+    def kv(shape, lead):
+        return {"k": torch.zeros(lead + shape, dtype=dt, device=device),
+                "v": torch.zeros(lead + shape, dtype=dt, device=device)}
 
     def one(desc: LayerDesc, lead=()):
         if desc.kind not in ATTN_KINDS:
-            return {desc.kind: _RECURRENT[desc.kind][2](cfg, batch, lead,
-                                                        device)}
-        window = cfg.attn_window if desc.kind == "attn_local" else 0
-        if page_size > 0:
-            assert not (window_cache and window), \
-                "paged cache excludes rolling-window layers"
-            shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+            c = {desc.kind: _RECURRENT[desc.kind][2](cfg, batch, lead,
+                                                     device)}
         else:
-            s = min(max_len, window) if (window_cache and window) \
-                else max_len
-            shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
-        return {"attn": {
-            "k": torch.zeros(lead + shape, dtype=dt, device=device),
-            "v": torch.zeros(lead + shape, dtype=dt, device=device)}}
+            window = cfg.attn_window if desc.kind == "attn_local" else 0
+            if page_size > 0:
+                assert not (window_cache and window), \
+                    "paged cache excludes rolling-window layers"
+                shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+            else:
+                s = min(max_len, window) if (window_cache and window) \
+                    else max_len
+                shape = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+            c = {"attn": kv(shape, lead)}
+        if desc.cross:
+            c["cross"] = kv((batch, enc_len, cfg.n_kv_heads, cfg.head_dim),
+                            lead)
+        return c
 
     return {"prefix": [one(d) for d in plan.prefix],
             "body": [one(d, (plan.n_periods,)) for d in plan.period]}
+
+
+def fit_cross_cache(stack, enc_len: int) -> None:
+    """Give every cross-attention cache of ``stack`` the encoder's length,
+    in place: a leaf of another length (``init_cache`` was given another
+    ``enc_len``) is replaced by zeros of ``enc_len`` rows, as the
+    reference's prefill replaces the leaf with the encoder's k and v."""
+    for group in ("prefix", "body"):
+        for block in stack[group]:
+            cross = block.get("cross")
+            if cross is None:
+                continue
+            axis = 1 if group == "prefix" else 2
+            for name, leaf in cross.items():
+                if leaf.shape[axis] != enc_len:
+                    shape = list(leaf.shape)
+                    shape[axis] = enc_len
+                    cross[name] = leaf.new_zeros(shape)
 
 
 def _layer(tree, i: int):

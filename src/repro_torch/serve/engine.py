@@ -63,7 +63,7 @@ import dataclasses
 import gc
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -212,8 +212,10 @@ _TRACE = (("tok", torch.int32), ("live", torch.bool),
           ("bonus_tok", torch.int32), ("bonus", torch.bool),
           ("retired", torch.bool))
 #: the kernel wrappers' launch counters: plain dicts counted in Python,
-#: which a graph's replay does not touch
-_LAUNCH_COUNTERS = (attention_ops.LAUNCHES, rglru_ops.LAUNCHES)
+#: which a graph's replay does not touch (``SHAPE_LAUNCHES`` gains a key
+#: at a signature's first launch)
+_LAUNCH_COUNTERS = (attention_ops.LAUNCHES, attention_ops.SHAPE_LAUNCHES,
+                    rglru_ops.LAUNCHES)
 #: one capture stream per device, shared by every engine's graphs:
 #: PyTorch keeps a cuBLAS workspace (32 MiB on an H100) for each stream
 #: that ran a matmul until the process ends, so a stream per engine
@@ -229,12 +231,13 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[index]
 
 
-def _launch_counts() -> List[Dict[str, int]]:
+def _launch_counts() -> List[Dict[Hashable, int]]:
     return [dict(counter) for counter in _LAUNCH_COUNTERS]
 
 
-def _set_launch_counts(counts: List[Dict[str, int]]) -> None:
+def _set_launch_counts(counts: List[Dict[Hashable, int]]) -> None:
     for counter, saved in zip(_LAUNCH_COUNTERS, counts):
+        counter.clear()
         counter.update(saved)
 
 
@@ -393,7 +396,7 @@ class HorizonGraphs:
                       for name, dt in _TRACE}
         #: n_steps -> (graph, the launch counts one replay adds)
         self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph,
-                                     List[Dict[str, int]]]] = {}
+                                     List[Dict[Hashable, int]]]] = {}
         self._stream = None
         if dev.type == "cuda":
             self._stream = _capture_stream(dev)
@@ -434,7 +437,8 @@ class HorizonGraphs:
             if collecting:
                 gc.enable()
         self.group.captures += 1
-        held = [{name: n - before[name] for name, n in after.items()}
+        held = [{name: n - before.get(name, 0)
+                 for name, n in after.items() if n != before.get(name, 0)}
                 for after, before in zip(_launch_counts(), counts)]
         _set_launch_counts(counts)
         return graph, held
@@ -451,7 +455,7 @@ class HorizonGraphs:
         graph.replay()
         for counter, add in zip(_LAUNCH_COUNTERS, held):
             for name, n in add.items():
-                counter[name] += n
+                counter[name] = counter.get(name, 0) + n
         return self.trace
 
 
@@ -571,6 +575,9 @@ class ContinuousEngine:
 
     def __init__(self, cfg: ArchConfig, params, plan: EndpointPlan,
                  device=None, exec_group: int = 0):
+        if cfg.input_mode != "tokens" or cfg.is_encdec:
+            raise ValueError("the continuous engine serves decoder-only "
+                             "token models")
         n_slots, max_len = plan.n_slots, plan.max_len
         self.cfg = cfg
         self.model = Model(cfg, device)

@@ -165,6 +165,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
     assert torch.equal(ops.flash_attention(q, k, v, window=5, softcap=3.0),
                        flash_attention_ref(q, k, v, window=5, softcap=3.0))
     assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.SHAPE_LAUNCHES == {}
 
 
 # ----- the bf16 kernel's rounding, emulated --------------------------------

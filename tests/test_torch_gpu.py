@@ -68,7 +68,7 @@ def _rand(gen, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("g,dh", [(2, 16), (3, 20), (7, 64), (1, 128),
-                                  (2, 256)])
+                                  (2, 256), (8, 128)])
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 def test_ragged_kernel_matches_plain(cuda, g, dh, dtype, softcap):
     gen = torch.Generator(device="cuda").manual_seed(g * dh)
@@ -86,7 +86,8 @@ def test_ragged_kernel_matches_plain(cuda, g, dh, dtype, softcap):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("g,dh,ps", [(2, 16, 8), (3, 20, 16), (7, 64, 64)])
+@pytest.mark.parametrize("g,dh,ps", [(2, 16, 8), (3, 20, 16), (7, 64, 64),
+                                     (8, 128, 64)])
 def test_paged_kernel_matches_plain(cuda, g, dh, ps, dtype):
     """A tight pool, scrambled disjoint tables, sentinel entries, and a
     retired row whose table is all sentinel."""
@@ -139,6 +140,25 @@ def test_paged_equals_contiguous_bit_for_bit(cuda):
         assert torch.equal(ops.flash_decode_attention(q, k, v, cur),
                            ops.paged_flash_decode_attention(q, kp, vp, table,
                                                             cur)), (smax, ps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cross_attention_decode_shape_matches_plain(cuda, dtype):
+    """seamless-m4t-large-v2's cross-attention decode: every row attends
+    over the whole encoder cache (cur = Se - 1) at 16 KV heads, G 1,
+    dh 64, 4096 frames."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    b, hkv, dh, se = 2, 16, 64, 4096
+    cur = torch.full((b,), se - 1, dtype=torch.int32, device=cuda)
+    q = _rand(gen, (b, 1, hkv, dh), dtype)
+    k = _rand(gen, (b, se, hkv, dh), dtype)
+    v = _rand(gen, (b, se, hkv, dh), dtype)
+    out = ops.flash_decode_attention(q, k, v, cur)
+    torch.cuda.synchronize()
+    expect = ref.ragged_decode_ref(q, k, v, cur)
+    _assert_within_tolerance(out, expect)
+    _assert_rows_within_tolerance(out, expect)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -258,6 +278,41 @@ def test_wrappers_count_launches_and_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):
         ops.flash_decode_attention(q.half(), k.half(), k.half(), cur)
     assert ops.LAUNCHES["ragged_decode"] == 1
+
+
+def test_shape_counter_keys_each_launch(cuda):
+    """One launch gives one (kernel, dtype, shape) key with count 1; a
+    second launch at the same signature counts 2; a refused call and a
+    CPU call add nothing; the reset clears the keys."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q = _rand(gen, (2, 1, 4, 16), torch.float32)
+    k = _rand(gen, (2, 32, 2, 16), torch.float32)
+    cur = torch.tensor([3, 31], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    ops.flash_decode_attention(q, k, k, cur)
+    ragged = ("ragged_decode", "float32", (2, 32, 2, 2, 16, 0, 0.0))
+    assert ops.SHAPE_LAUNCHES == {ragged: 1}
+    with pytest.raises(ValueError):
+        ops.flash_decode_attention(q, k, k, cur.long())
+    ops.flash_decode_attention(q.cpu(), k.cpu(), k.cpu(), cur.cpu())
+    ops.flash_decode_attention(q, k, k, cur)
+    assert ops.SHAPE_LAUNCHES == {ragged: 2}
+    pages, table = k.reshape(8, 8, 2, 16), torch.arange(
+        8, dtype=torch.int32, device=cuda).reshape(2, 4)
+    ops.paged_flash_decode_attention(q.bfloat16(), pages.bfloat16(),
+                                     pages.bfloat16(), table, cur,
+                                     softcap=30.0)
+    qs = _rand(gen, (2, 9, 4, 16), torch.float32)
+    ops.flash_attention(qs, k, k, causal=False)
+    assert ops.SHAPE_LAUNCHES == {
+        ragged: 2,
+        ("paged_decode", "bfloat16", (2, 32, 2, 2, 16, 8, 30.0)): 1,
+        ("flash_attention", "float32",
+         (2, 9, 32, 4, 2, 16, False, 0, 0.0)): 1}
+    assert ops.LAUNCHES == {"ragged_decode": 2, "paged_decode": 1,
+                            "flash_attention": 1}
+    ops.reset_launch_counts()
+    assert ops.SHAPE_LAUNCHES == {}
 
 
 @pytest.mark.parametrize("pages", [False, True])
@@ -637,6 +692,11 @@ def test_recurrentgemma_engine_on_card_matches_cpu(cuda, horizon):
     (1, 300, 300, 10, 1, 256, True, 100, 0.0),     # window ends mid-tile
     (2, 100, 257, 14, 2, 64, False, 0, 0.0),       # full, Sk != Sq
     (1, 257, 100, 14, 2, 64, False, 0, 0.0),
+    # seamless-m4t-large-v2's encoder and cross-attention prefill (8
+    # prompt tokens over 4096 frames); qwen2-vl-72b's heads
+    (2, 512, 512, 16, 16, 64, False, 0, 0.0),
+    (2, 8, 4096, 16, 16, 64, False, 0, 0.0),
+    (2, 256, 256, 64, 8, 128, True, 0, 0.0),
 ])
 def test_flash_kernel_matches_plain(cuda, b, sq, sk, hq, hkv, dh, causal,
                                     window, softcap, dtype):
@@ -832,6 +892,11 @@ def _horizon_run(eng, on_horizon=None):
     done = {r.rid: r.output for r in eng.run()[n_done:]}
     torch.cuda.synchronize()
     eng._run_horizon = run
+    # a replay adds its capture's launches to both counters alike
+    by_kernel = dict.fromkeys(ops.LAUNCHES, 0)
+    for (name, _, _), n in ops.SHAPE_LAUNCHES.items():
+        by_kernel[name] += n
+    assert by_kernel == ops.LAUNCHES
     return (done, eng.admit_order[n_done:], eng.retire_steps, steps,
             dict(ops.LAUNCHES, **rglru_ops.LAUNCHES))
 
@@ -1264,7 +1329,22 @@ def test_attention_kernels_refuse_grad_requiring_inputs(cuda):
 
 
 TRAIN_ARCHS = ["qwen2-0.5b", "recurrentgemma-2b", "granite-moe-1b-a400m",
-               "xlstm-1.3b"]
+               "xlstm-1.3b", "seamless-m4t-large-v2", "qwen2-vl-72b"]
+
+
+def _smoke_batch(cfg, gen, rows=2, length=32):
+    """(rows, length) tokens and labels; over 24 frames for an enc-dec
+    model; embeddings instead of tokens for embeddings input."""
+    batch = {k: torch.randint(0, cfg.vocab, (rows, length), generator=gen)
+             for k in ("tokens", "labels")}
+    if cfg.is_encdec:
+        batch["enc_embeds"] = torch.randn((rows, 24, cfg.d_model),
+                                          generator=gen)
+    elif cfg.input_mode == "embeddings":
+        batch["embeds"] = torch.randn((rows, length, cfg.d_model),
+                                      generator=gen)
+        del batch["tokens"]
+    return batch
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
@@ -1279,9 +1359,7 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     cfg = dataclasses.replace(get_smoke_config(arch),
                               compute_dtype="float32")
     params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
-    gen = torch.Generator().manual_seed(1)
-    batch = {k: torch.randint(0, cfg.vocab, (2, 32), generator=gen)
-             for k in ("tokens", "labels")}
+    batch = _smoke_batch(cfg, torch.Generator().manual_seed(1))
     out = {}
     for dev in ("cpu", "cuda"):
         ops.reset_launch_counts()
@@ -1301,6 +1379,50 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     for a, b in zip(g_gpu, g_cpu):
         scale = max(b.abs().max().item(), floor)
         assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "qwen2-vl-72b"])
+def test_encdec_and_embeds_on_card_match_cpu(cuda, arch):
+    """The smoke config at fp32: a prefill of 2 rows (over 24 frames, or
+    of embeddings) and 8 decode steps (greedy tokens fed back, or the
+    steps' embeddings) on the card equal the CPU's: the same greedy
+    tokens, logits within 1e-4 of the largest.  The card launches flash
+    once an attention layer (encoder, decoder self and cross) per prefill
+    and ragged decode once a decoder attention (self and cross) per
+    step."""
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(2)
+    batch = _smoke_batch(cfg, gen, length=16)
+    del batch["labels"]
+    steps = torch.randn((8, 2, cfg.d_model), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = Model(cfg, dev)
+        p = m.prepare_params(params)
+        ops.reset_launch_counts()
+        logits, cache = m.prefill(p, {k: v.to(dev) for k, v in batch.items()},
+                                  m.init_cache(2, 32, enc_len=24))
+        chain, toks = [logits.cpu()], []
+        for i in range(8):
+            if cfg.is_encdec:
+                tok = logits.argmax(-1).int()
+                logits, cache = m.decode_step(p, cache, tokens=tok)
+            else:
+                logits, cache = m.decode_step(p, cache,
+                                              embeds=steps[i].to(dev))
+            toks.append(logits.argmax(-1).cpu())
+            chain.append(logits.cpu())
+        out[dev] = torch.stack(chain), torch.stack(toks), dict(ops.LAUNCHES)
+    (l_cpu, t_cpu, c_cpu), (l_gpu, t_gpu, c_gpu) = out["cpu"], out["cuda"]
+    assert not any(c_cpu.values())
+    decoder = cfg.n_layers * (2 if cfg.is_encdec else 1)
+    assert c_gpu == {"flash_attention": cfg.n_enc_layers + decoder,
+                     "ragged_decode": 8 * decoder, "paged_decode": 0}
+    assert torch.equal(t_gpu, t_cpu)
+    assert (l_gpu - l_cpu).abs().max().item() <= \
+        1e-4 * l_cpu.abs().max().item()
 
 
 def _plain_norm(p, x, kind):

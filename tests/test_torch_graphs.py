@@ -88,7 +88,8 @@ def test_horizon_body_keeps_its_buffers_and_serves_the_reference(
     for rid, (prompt, max_new, eos) in enumerate(specs):
         eng.submit(TRequest(rid=rid, prompt=prompt, max_new_tokens=max_new,
                             eos_id=eos))
-    launches = (dict(fa_ops.LAUNCHES), dict(rglru_ops.LAUNCHES))
+    launches = (dict(fa_ops.LAUNCHES), dict(fa_ops.SHAPE_LAUNCHES),
+                dict(rglru_ops.LAUNCHES))
     eng.start()
     fixed = _addresses(eng)
     retired = 0
@@ -114,7 +115,8 @@ def test_horizon_body_keeps_its_buffers_and_serves_the_reference(
                 "busy_slot_steps"):
         assert eng.stats[key] == jstats[key], key
     assert eng.graph_count() == 0
-    assert (fa_ops.LAUNCHES, rglru_ops.LAUNCHES) == launches
+    assert (fa_ops.LAUNCHES, fa_ops.SHAPE_LAUNCHES,
+            rglru_ops.LAUNCHES) == launches
 
 
 @pytest.mark.parametrize("pages", [False, True], ids=["contiguous", "pages4"])

@@ -112,6 +112,7 @@ def test_wrappers_route_cpu_tensors_to_the_plain_versions():
         ref.paged_decode_ref(q, pages, pages, pt, cur))
     assert ops.LAUNCHES == {"ragged_decode": 0, "paged_decode": 0,
                             "flash_attention": 0}
+    assert ops.SHAPE_LAUNCHES == {}
 
 
 def test_launcher_serves_recurrentgemma_on_the_cpu_when_asked(capsys):

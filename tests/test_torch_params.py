@@ -11,16 +11,27 @@ import numpy as np
 import pytest
 import torch
 
+from repro import serve as jserve
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import params as jparams_mod
 from repro.models.model import Model as JModel
-from repro_torch.configs import get_smoke_config
+from repro.serve.engine import ContinuousEngine as JContinuous
+from repro.serve.engine import ServeEngine as JWave
+from repro_torch import serve as tserve
+from repro_torch.configs import ARCHS as ALL_ARCHS
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.plan import EndpointPlan, SharingVector
 from repro_torch.models import params as P
 from repro_torch.models.model import Model
+from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 
 ARCHS = ["qwen2-0.5b", "smollm-360m", "recurrentgemma-2b",
          "granite-moe-1b-a400m", "deepseek-moe-16b", "xlstm-1.3b",
-         "stablelm-1.6b", "internlm2-1.8b"]
+         "stablelm-1.6b", "internlm2-1.8b", "seamless-m4t-large-v2",
+         "qwen2-vl-72b"]
+#: the configs the serving engines refuse, in the reference as here
+NOT_SERVED = ["seamless-m4t-large-v2", "qwen2-vl-72b"]
 
 
 def _flat_specs(tree, is_leaf):
@@ -28,18 +39,21 @@ def _flat_specs(tree, is_leaf):
             for s in P.tree_leaves(tree, is_leaf)]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_spec_tree_matches_reference(arch):
-    jspecs = JModel(jax_smoke_config(arch)).param_specs()
-    tspecs = Model(get_smoke_config(arch), device="cpu").param_specs()
+def _assert_same_spec_tree(jcfg, tcfg):
+    jmodel, tmodel = JModel(jcfg), Model(tcfg, device="cpu")
+    jspecs, tspecs = jmodel.param_specs(), tmodel.param_specs()
     jflat = [(s.shape, s.axes, s.init, s.scale, s.fan_in)
              for s in jax.tree.leaves(jspecs, is_leaf=jparams_mod.is_spec)]
     assert _flat_specs(tspecs, P.is_spec) == jflat
     assert jax.tree.structure(
         jax.tree.map(lambda s: 0, jspecs, is_leaf=jparams_mod.is_spec)) \
         == jax.tree.structure(P.tree_map(lambda s: 0, tspecs, P.is_spec))
-    assert Model(get_smoke_config(arch), device="cpu").n_params() \
-        == JModel(jax_smoke_config(arch)).n_params()
+    assert tmodel.n_params() == jmodel.n_params()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_spec_tree_matches_reference(arch):
+    _assert_same_spec_tree(jax_smoke_config(arch), get_smoke_config(arch))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -100,15 +114,35 @@ def test_own_init_shapes_and_distributions():
         P.tree_leaves(again, torch.is_tensor)))
 
 
-def test_later_slice_blocks_raise():
-    """Only encoder-decoder models and embeddings input wait for a later
-    slice (ROADMAP Queue 1 item 5b, after training); MoE and xLSTM models
-    build."""
-    for arch in ("seamless-m4t-large-v2", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 5b"):
-            Model(get_smoke_config(arch), device="cpu")
-    for arch in ("xlstm-1.3b", "granite-moe-1b-a400m", "deepseek-moe-16b"):
-        Model(get_smoke_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_full_config_builds_with_the_reference_spec_tree(arch):
+    """Each of the ten published configs builds in the port (encoder-
+    decoder and embeddings input included), with repro's spec tree,
+    shapes and parameter count."""
+    _assert_same_spec_tree(jax_config(arch), get_config(arch))
+
+
+@pytest.mark.parametrize("arch", NOT_SERVED)
+def test_engines_and_connect_refuse_encdec_and_embeddings_input(arch):
+    """repro's wave and continuous engines assert on an enc-dec or an
+    embeddings-input model, and so ``connect`` with either executor;
+    the port's raise ValueError in the same places."""
+    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+    plan = EndpointPlan(vector=SharingVector(slots=4), n_slots=2,
+                        max_len=32)
+    for engine in (ServeEngine, ContinuousEngine):
+        with pytest.raises(ValueError, match="decoder-only token models"):
+            engine(tcfg, None, plan, device="cpu")
+    for engine in (JWave, JContinuous):
+        with pytest.raises(AssertionError):
+            engine(jcfg, None)
+    for executor in ("wave", "continuous"):
+        with pytest.raises(ValueError, match="decoder-only token models"):
+            tserve.connect(tcfg, None, executor=executor, n_slots=2,
+                           max_len=32, device="cpu")
+        with pytest.raises(AssertionError):
+            jserve.connect(jcfg, None, executor=executor, n_slots=2,
+                           max_len=32)
 
 
 def test_lambda_rglru_init_draws_griffins_range():
