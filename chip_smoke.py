@@ -3131,13 +3131,12 @@ def train_recurrentgemma(card: str) -> dict:
 
 def train_smoke_card_vs_cpu(card: str) -> None:
     """One train step's loss and gradients (``value_and_grad``) at fp32
-    on the smoke configs of ``TRAIN_SMOKE_ARCHS``, (2, 32) batches (over
-    24 frames for the enc-dec model, embeddings for the embeddings-input
-    one), card against CPU: the loss within 1e-5 relative, each gradient
-    leaf within 1e-4 of its largest CPU magnitude, floored at 1e-3 of the
-    model's largest (a gradient that is exactly zero, as the sLSTM
-    input-gate bias's, holds rounding noise of about 1e-9 on both
-    devices)."""
+    on the smoke configs of ``TRAIN_SMOKE_ARCHS``, (2, 32) batches of
+    ``_smoke_inputs`` and labels, card against CPU: the loss within 1e-5
+    relative, each gradient leaf within 1e-4 of its largest CPU
+    magnitude, floored at 1e-3 of the model's largest (a gradient that is
+    exactly zero, as the sLSTM input-gate bias's, holds rounding noise of
+    about 1e-9 on both devices)."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.steps import value_and_grad
@@ -3149,15 +3148,8 @@ def train_smoke_card_vs_cpu(card: str) -> None:
                                   compute_dtype="float32")
         params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
         gen = torch.Generator().manual_seed(1)
-        batch = {k: torch.randint(0, cfg.vocab, (2, 32), generator=gen)
-                 for k in ("tokens", "labels")}
-        if cfg.is_encdec:
-            batch["enc_embeds"] = torch.randn((2, 24, cfg.d_model),
-                                              generator=gen)
-        elif cfg.input_mode == "embeddings":
-            batch["embeds"] = torch.randn((2, 32, cfg.d_model),
-                                          generator=gen)
-            del batch["tokens"]
+        batch, _ = _smoke_inputs(cfg, 2, 32, gen)
+        batch["labels"] = torch.randint(0, cfg.vocab, (2, 32), generator=gen)
         out = {}
         for dev in ("cpu", "cuda"):
             out[dev] = value_and_grad(
@@ -3232,29 +3224,47 @@ def read_shape_counts() -> dict:
     return dict(ops.SHAPE_LAUNCHES)
 
 
-def _collect(launched: dict, label: str) -> None:
+def _collect(launched: dict, label: str, cross=None) -> None:
     """Add the launches by shape since the last reset to ``launched``
-    ({key: [count, set of the runs that launched it]})."""
+    ({key: [count, set of the runs that launched it, whether every
+    launch read a cross cache]}).  ``cross`` is the run's (cross cache
+    length, self cache length) in an enc-dec model: a decode key at the
+    cross length read the cross cache, every row at its full length; the
+    two lengths must differ, or the keys could not tell them apart."""
+    if cross is not None and cross[0] == cross[1]:
+        raise AssertionError(f"{label}: cross and self caches of one "
+                             f"length {cross[0]}")
     for key, n in read_shape_counts().items():
-        entry = launched.setdefault(key, [0, set()])
+        full = (cross is not None and key[0] != "flash_attention"
+                and key[2][1] == cross[0])
+        entry = launched.setdefault(key, [0, set(), True])
         entry[0] += n
         entry[1].add(label)
+        entry[2] = entry[2] and full
 
 
-def _warm_prefill(prefill) -> float:
-    """Run ``prefill()`` once before the measured prefill (its shapes'
-    first call: cuBLAS's choices, the allocator's first blocks, which the
-    measured call reuses) and drop what it made; -> its ms."""
+def _warm_up(prefill, *decodes) -> float:
+    """Run ``prefill()`` once before the measured prefill, then each of
+    ``decodes`` once on the (logits, cache) it made: the shapes' first
+    calls (cuBLAS's choices, the allocator's first blocks, which the
+    measured calls reuse) for the prefill and for one decode step per
+    cache kind, so that no timed run pays them.  Drops what they made;
+    -> the prefill's ms."""
     _sync()
     t0 = time.perf_counter()
-    prefill()
+    out = prefill()
     _sync()
-    return (time.perf_counter() - t0) * 1e3
+    ms = (time.perf_counter() - t0) * 1e3
+    for decode in decodes:
+        decode(*out)
+    _sync()
+    return ms
 
 
 def _serve_seamless(model, weights, card, bad, launched) -> dict:
     """Prefill of ENC_ROWS rows over ENC_LEN frames and DEC_PROMPT
-    tokens, then ENC_STEPS greedy steps, bf16: flash launched for every
+    tokens, then ENC_STEPS greedy steps, bf16, timed after an untimed
+    prefill and decode step (``_warm_up``): flash launched for every
     attention layer of the prefill, ragged decode for the decoder's
     self- and cross-attention at every step."""
     import torch
@@ -3264,9 +3274,11 @@ def _serve_seamless(model, weights, card, bad, launched) -> dict:
     tokens = torch.randint(1, cfg.vocab, (ENC_ROWS, DEC_PROMPT),
                            generator=gen, device="cuda")
     inputs = {"enc_embeds": frames, "tokens": tokens}
-    cold_ms = _warm_prefill(lambda: model.prefill(
-        weights, inputs, model.init_cache(ENC_ROWS, DEC_MAX_LEN,
-                                          enc_len=ENC_LEN)))
+    cold_ms = _warm_up(
+        lambda: model.prefill(weights, inputs, model.init_cache(
+            ENC_ROWS, DEC_MAX_LEN, enc_len=ENC_LEN)),
+        lambda logits, cache: model.decode_step(
+            weights, cache, tokens=logits.argmax(-1).int()))
     live = fresh_peak()
     cache = model.init_cache(ENC_ROWS, DEC_MAX_LEN, enc_len=ENC_LEN)
     reset_counts()
@@ -3285,7 +3297,8 @@ def _serve_seamless(model, weights, card, bad, launched) -> dict:
     _sync()
     decode_s = time.perf_counter() - t0
     counts = read_counts()
-    _collect(launched, "seamless-m4t-large-v2 bf16")
+    _collect(launched, "seamless-m4t-large-v2 bf16",
+             cross=(ENC_LEN, DEC_MAX_LEN))
     toks = torch.stack(toks)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     reserved = torch.cuda.max_memory_reserved() / 2 ** 30
@@ -3346,7 +3359,8 @@ def _seamless_chain_fp32(cfg, params, card, bad, launched) -> None:
         logits, cache = model.decode_step(w32, cache, tokens=tokens[:, t])
         chain.append(logits)
     counts = read_counts()
-    _collect(launched, "seamless-m4t-large-v2 fp32 chain")
+    _collect(launched, "seamless-m4t-large-v2 fp32 chain",
+             cross=(CHAIN_ENC_LEN, CHAIN_TOTAL + 2))
     expect = full[:, CHAIN_PROMPT - 1:CHAIN_TOTAL - 1]
     err = (torch.stack(chain, 1) - expect).abs().max().item()
     limit = CHAIN_REL_TOL * expect.abs().max().item()
@@ -3425,9 +3439,10 @@ def _serve_qwen2_vl(card, bad, launched) -> dict:
     """qwen2-vl-72b at full width, cut to VL_LAYERS layers, bf16: a
     prefill of VL_ROWS rows of VL_LEN embedding positions (the image grid
     then text, M-RoPE), then VL_STEPS steps fed embeddings on the
-    contiguous cache and on a paged copy of it: every step's logits equal
-    bit for bit, flash launched once a layer in the prefill, ragged (or
-    paged) decode once a layer a step."""
+    contiguous cache and on a paged copy of it, timed after an untimed
+    prefill and one untimed step on each (``_warm_up``): every step's
+    logits equal bit for bit, flash launched once a layer in the prefill,
+    ragged (or paged) decode once a layer a step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
@@ -3444,9 +3459,13 @@ def _serve_qwen2_vl(card, bad, launched) -> dict:
     steps = _rand(gen, (VL_STEPS, VL_ROWS, cfg.d_model), torch.bfloat16)
     pos = _vision_positions(VL_ROWS, VL_GRID, VL_LEN, "cuda")
     inputs = {"embeds": embeds, "positions": pos}
-    cold_ms = _warm_prefill(lambda: model.prefill(
-        weights, inputs, model.init_cache(VL_ROWS, VL_MAX_LEN,
-                                          per_slot=True)))
+    warm_gen = torch.Generator(device="cuda").manual_seed(21)
+    cold_ms = _warm_up(
+        lambda: model.prefill(weights, inputs, model.init_cache(
+            VL_ROWS, VL_MAX_LEN, per_slot=True)),
+        lambda _, cache: model.decode_step(
+            weights, _pages_of(model, cache, warm_gen), embeds=steps[0]),
+        lambda _, cache: model.decode_step(weights, cache, embeds=steps[0]))
     live = fresh_peak()
     cache = model.init_cache(VL_ROWS, VL_MAX_LEN, per_slot=True)
     reset_counts()
@@ -3516,10 +3535,10 @@ def _serve_qwen2_vl(card, bad, launched) -> dict:
 
 
 def _smoke_inputs(cfg, rows, length, gen):
-    """A CPU batch of the smoke config's kind: ``enc_embeds`` of
-    ``length`` frames and ``length`` tokens (enc-dec), or ``embeds`` with
-    a 4 x 4 image grid's positions (embeddings input); and the decode
-    steps' embeddings (embeddings input, else None)."""
+    """A CPU batch of the smoke config's kind: ``length`` tokens, over
+    ``enc_embeds`` of ``length`` frames (enc-dec), or ``embeds`` with a 4
+    x 4 image grid's positions (embeddings input); and the decode steps'
+    embeddings (embeddings input, else None)."""
     import torch
     if cfg.is_encdec:
         return {"enc_embeds": torch.randn((rows, length, cfg.d_model),
@@ -3532,6 +3551,8 @@ def _smoke_inputs(cfg, rows, length, gen):
                                        generator=gen),
                  "positions": _vision_positions(rows, grid, length, "cpu")},
                 torch.randn((8, rows, cfg.d_model), generator=gen))
+    return {"tokens": torch.randint(1, cfg.vocab, (rows, length),
+                                    generator=gen)}, None
 
 
 def _encdec_embeds_smoke_card_vs_cpu(card, bad, launched) -> None:
@@ -3573,7 +3594,9 @@ def _encdec_embeds_smoke_card_vs_cpu(card, bad, launched) -> None:
                 chain.append(logits.cpu())
             out[dev] = (torch.stack(chain), torch.stack(toks),
                         read_counts())
-        _collect(launched, f"{arch} smoke fp32")
+        _collect(launched, f"{arch} smoke fp32",
+                 cross=((SMOKE_FRAMES, SMOKE_MAX_LEN) if cfg.is_encdec
+                        else None))
         (l_cpu, t_cpu, c_cpu), (l_card, t_card, c_card) = \
             out["cpu"], out["cuda"]
         err = (l_card - l_cpu).abs().max().item()
@@ -3595,15 +3618,15 @@ def _encdec_embeds_smoke_card_vs_cpu(card, bad, launched) -> None:
 SHAPE_CASE_CACHES, SHAPE_CASE_INPUTS = 24, 4
 
 
-def _shape_case(key, launches, runs, full_caches, gen):
+def _shape_case(key, launches, runs, cross, gen):
     """The case of one (kernel, dtype, shape) key that phase 16's runs
     launched ``launches`` times: the kernel at that signature against its
     plain version, timed beside it and SDPA (``_flash_case``,
-    ``_decode_case``).  A decode cache whose capacity is in
-    ``full_caches`` (a cross cache: every row reads it whole) runs every
-    row at its full length; any other runs its rows at lengths spread
-    over the capacity, the last row full.  Every launch the case makes
-    must be at ``key`` itself.  -> case dict."""
+    ``_decode_case``).  A decode key that only ever read a cross cache
+    (``cross``, from ``_collect``) runs every row at its full length;
+    any other runs its rows at lengths spread over the capacity, the
+    last row full.  Every launch the case makes must be at ``key``
+    itself.  -> case dict."""
     name, dtype, shape = key
     reset_counts()
     if name == "flash_attention":
@@ -3617,7 +3640,7 @@ def _shape_case(key, launches, runs, full_caches, gen):
         b, capacity, hkv, g, dh, ps, softcap = shape
         if softcap:
             raise AssertionError(f"no case for softcap {softcap}: {key}")
-        cur = ([capacity - 1] * b if capacity in full_caches else
+        cur = ([capacity - 1] * b if cross else
                [capacity * (r + 1) // b - 1 for r in range(b)])
         label = (f"B={b}, Smax={capacity}, Hkv={hkv}, G={g}, dh={dh}"
                  f"{f', pages of {ps}' if ps else ''} {dtype} ({runs})")
@@ -3660,13 +3683,12 @@ def serve_encdec_embeds(card: str) -> dict:
     if bad:
         raise AssertionError("; ".join(bad))
     gen = torch.Generator(device="cuda").manual_seed(20)
-    full_caches = {ENC_LEN, CHAIN_ENC_LEN, SMOKE_FRAMES}
     cases, missing = [], []
     for key in sorted(launched, key=repr):
-        n, runs = launched[key]
+        n, runs, cross = launched[key]
         try:
             cases.append((key[0], _shape_case(
-                key, n, ", ".join(sorted(runs)), full_caches, gen)))
+                key, n, ", ".join(sorted(runs)), cross, gen)))
         except Exception:
             traceback.print_exc()
             missing.append(key)
