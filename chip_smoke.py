@@ -193,6 +193,25 @@ Phases (any failure exits non-zero, without the final result line):
    version and timed beside SDPA, its ``launches`` the key's count
    (added to phase 12's cases); the phase fails if a key has no passing
    case.
+17. (last; its sweep starts right after phase 2) the dry run
+   ``python -m repro_torch.launch.dryrun --all --mesh both`` in a
+   subprocess at the lowest CPU priority beside phases 3 to 16 (its fake
+   process group cannot share a process with NCCL): every arch x cell x
+   mesh on meta tensors, 64 ok and 16 skipped, none failed; its seconds,
+   slowest cells, the roofline table with the H100's constants and
+   ``auto_accum`` of each train cell printed.  Then, over a (1, 1)
+   ("data", "model") mesh of a one-process NCCL group, steps built by
+   ``make_decode_step`` with ``make_shard_fn`` installed, weights from
+   seed 0 in the dry run's ``params_bf16`` dtypes: qwen2-0.5b
+   ``decode_32k`` at full width and depth (128 rows, a 32768-key bf16
+   cache filled from a generator, ``idx`` 32767, so every step reads
+   every key of every row), one untimed step and the median of 8, gated
+   on finite logits, 24 ragged launches a step and the dry run's
+   ``argument_bytes`` on the one-card mesh equal to the bytes handed to
+   the step; recurrentgemma-2b ``long_500k`` (one row at position 524287
+   of its rolling caches), gated on finite logits and no launch.  ms a
+   step beside the roofline's terms; then each launched key held against
+   its plain version (phase 16's mechanism, added to phase 12's cases).
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
@@ -3224,19 +3243,22 @@ def read_shape_counts() -> dict:
     return dict(ops.SHAPE_LAUNCHES)
 
 
-def _collect(launched: dict, label: str, cross=None) -> None:
+def _collect(launched: dict, label: str, cross=None,
+             full_rows: bool = False) -> None:
     """Add the launches by shape since the last reset to ``launched``
     ({key: [count, set of the runs that launched it, whether every
-    launch read a cross cache]}).  ``cross`` is the run's (cross cache
-    length, self cache length) in an enc-dec model: a decode key at the
-    cross length read the cross cache, every row at its full length; the
-    two lengths must differ, or the keys could not tell them apart."""
+    launch read every row at its full length]}).  ``cross`` is the run's
+    (cross cache length, self cache length) in an enc-dec model: a decode
+    key at the cross length read the cross cache, every row at its full
+    length; the two lengths must differ, or the keys could not tell them
+    apart.  ``full_rows``: every decode launch of the run read whole
+    rows (phase 17's cells)."""
     if cross is not None and cross[0] == cross[1]:
         raise AssertionError(f"{label}: cross and self caches of one "
                              f"length {cross[0]}")
     for key, n in read_shape_counts().items():
-        full = (cross is not None and key[0] != "flash_attention"
-                and key[2][1] == cross[0])
+        full = key[0] != "flash_attention" and (full_rows or (
+            cross is not None and key[2][1] == cross[0]))
         entry = launched.setdefault(key, [0, set(), True])
         entry[0] += n
         entry[1].add(label)
@@ -3614,8 +3636,11 @@ def _encdec_embeds_smoke_card_vs_cpu(card, bad, launched) -> None:
 
 
 #: caches per decode case and inputs per flash case of phase 16's shapes
-#: (a decode case walks one cache per input, as a step walks its layers)
+#: (a decode case walks one cache per input, as a step walks its layers),
+#: and the most bytes a decode case's caches may hold together (phase
+#: 17's key, 2 GiB of K and V a cache, walks 8)
 SHAPE_CASE_CACHES, SHAPE_CASE_INPUTS = 24, 4
+SHAPE_CASE_BYTES = 16 * 2 ** 30
 
 
 def _shape_case(key, launches, runs, cross, gen):
@@ -3644,8 +3669,12 @@ def _shape_case(key, launches, runs, cross, gen):
                [capacity * (r + 1) // b - 1 for r in range(b)])
         label = (f"B={b}, Smax={capacity}, Hkv={hkv}, G={g}, dh={dh}"
                  f"{f', pages of {ps}' if ps else ''} {dtype} ({runs})")
+        per_cache = 2 * b * capacity * hkv * dh * (
+            4 if dtype == "float32" else 2)
+        n_caches = min(SHAPE_CASE_CACHES,
+                       max(2, SHAPE_CASE_BYTES // per_cache))
         case = _decode_case(label, capacity, cur, {name: launches},
-                            n_layers=SHAPE_CASE_CACHES, heads=(hkv, g, dh),
+                            n_layers=n_caches, heads=(hkv, g, dh),
                             names=(name,), dtype=dtype, ps=ps or 64)[name]
     ran = read_shape_counts()
     if set(ran) != {key}:
@@ -3704,7 +3733,291 @@ def serve_encdec_embeds(card: str) -> dict:
     return {"seamless": seamless, "qwen2-vl": vl, "cases": cases}
 
 
+# ----- phase 17 --------------------------------------------------------------
+
+#: the dry run's sweep: started after the build in a subprocess (its fake
+#: process group cannot share a process with NCCL), at the lowest CPU
+#: priority, beside the card's phases; joined by phase 17 before its own
+#: runs.  Worker processes, its records and log, the records it must
+#: hold (10 archs x 4 cells x 2 meshes; long_500k applies to the two
+#: sub-quadratic archs), the seconds after the script's start by which
+#: it must have ended
+DRYRUN_JOBS = 6
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_LOG = ROOT / "build" / "dryrun.log"
+DRYRUN_OK, DRYRUN_SKIPPED = 64, 16
+DRYRUN_DEADLINE_S = 950
+#: timed decode steps of each cell stepped on the card (after one
+#: untimed step)
+CELL_STEPS = 8
+
+
+def start_dryrun(started: float):
+    """Start the dry run's sweep; -> (process, script start, sweep
+    start).  The process leads its own session, so that ``stop_dryrun``
+    ends its workers with it."""
+    import atexit
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(DRYRUN_LOG, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--jobs", str(DRYRUN_JOBS), "--out",
+             str(DRYRUN_DIR)], cwd=ROOT, env=env, stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True,
+            preexec_fn=lambda: os.nice(19))
+    atexit.register(stop_dryrun, proc)
+    log(f"dry run started in the background (pid {proc.pid}, "
+        f"{DRYRUN_JOBS} workers at nice 19): {DRYRUN_LOG}")
+    return proc, started, time.perf_counter()
+
+
+def stop_dryrun(proc) -> None:
+    """End the sweep's session (the process and its workers) if it still
+    runs."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def dryrun_sweep(sweep) -> dict:
+    """Phase 17's first part: wait for the sweep (until DRYRUN_DEADLINE_S
+    after the script's start), gate its counts, print its seconds, the
+    slowest cells, the roofline table with the H100's constants and
+    ``auto_accum`` of each train cell.  -> the summary."""
+    from repro_torch.launch import roofline
+    proc, started, t0 = sweep
+    wait0 = time.perf_counter()
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_DEADLINE_S
+                              - (wait0 - started)))
+    except subprocess.TimeoutExpired:
+        stop_dryrun(proc)
+        raise AssertionError(f"the dry run had not ended "
+                             f"{DRYRUN_DEADLINE_S} s after the start "
+                             f"(log: {DRYRUN_LOG})")
+    waited = time.perf_counter() - wait0
+    with open(DRYRUN_DIR / "summary.json") as f:
+        summary = json.load(f)
+    s, cells = summary["summary"], summary["cells"]
+    log(f"dry run: {s['ok']} ok, {s['skipped']} skipped, {s['failed']} "
+        f"failed of {s['total']} (arch x cell x mesh), {s['seconds']} s on "
+        f"{s['jobs']} worker processes beside phases 3 to 16; phase 17 "
+        f"waited {waited:.1f} s for it")
+    slow = sorted((c for c in cells if "seconds" in c),
+                  key=lambda c: -c["seconds"])
+    log("dry run, where the time went (s a cell, slowest first): " + ", ".join(
+        f"{c['arch']}|{c['shape']}|{c['mesh_name']} {c['seconds']}"
+        for c in slow[:10]) + f"; the other {len(slow) - 10} cells "
+        f"{sum(c['seconds'] for c in slow[10:]):.1f} s together")
+    for c in cells:
+        if c.get("status") == "failed":
+            log(f"dry run FAILED {c['arch']}|{c['shape']}|"
+                f"{c['mesh_name']}: {c['error']}\n{c.get('traceback', '')}")
+    log(f"roofline (H100: {roofline.PEAK_FLOPS:.3e} bf16 FLOP/s, "
+        f"{roofline.HBM_BW:.3e} B/s HBM, {roofline.LINK_BW:.3e} B/s "
+        f"NVLink a direction, {roofline.HBM_BYTES} B a card):")
+    for mesh in ("single", "multi"):
+        log(f"mesh {mesh}:\n" + roofline.markdown_table(
+            roofline.load_rows(str(DRYRUN_DIR), mesh)))
+    log("auto_accum of the train cells: " + ", ".join(
+        f"{c['arch']}|{c['mesh_name']} {c['accum_steps']}"
+        for c in cells if c.get("kind") == "train"))
+    if (s["ok"], s["skipped"], s["failed"]) != (DRYRUN_OK, DRYRUN_SKIPPED,
+                                                0) or proc.returncode:
+        raise AssertionError(f"dry run: {s} (exit {proc.returncode}); "
+                             f"expected {DRYRUN_OK} ok, {DRYRUN_SKIPPED} "
+                             f"skipped, none failed")
+    return s
+
+
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _dtypes(tree) -> str:
+    return "/".join(sorted({str(t.dtype).removeprefix("torch.")
+                            for t in _leaves(tree)}))
+
+
+def _cell_steps(step, params, cache, inputs):
+    """One untimed step, then CELL_STEPS timed ones, each ending in a
+    sync, all on the same cache dict (its ``idx`` stays where it was
+    set: each step is the cell's).  -> (median ms, last logits)."""
+    import statistics
+    logits, _ = step(params, cache, inputs)
+    _sync()
+    times = []
+    for _ in range(CELL_STEPS):
+        t = time.perf_counter()
+        logits, _ = step(params, cache, inputs)
+        _sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times), logits
+
+
+def _cell_setup(arch, shape, mesh, card):
+    """The cell's record on the one-card mesh (``lower_cell`` with
+    ``params_bf16``), its model on the card, its weights drawn from seed
+    0 in the record's dtypes, the cache of the cell's shape filled from a
+    generator with ``idx`` at its last position, and its tokens
+    (``trace_serve.cell_inputs``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import bf16_params, lower_cell
+    from repro_torch.launch.shapes import SHAPES
+    from repro_torch.launch.trace_serve import cell_inputs
+    from repro_torch.models import Model
+    cfg, cell = get_config(arch), SHAPES[shape]
+    rec = lower_cell(arch, shape, mesh, params_bf16=True)
+    model = Model(cfg, "cuda")
+    params = bf16_params(_family_weights(cfg, card))
+    _free_card()
+    cache, tokens = cell_inputs(model, cell)
+    return cfg, cell, rec, model, params, cache, tokens
+
+
+def _decode_32k(mesh, card, bad, launched) -> dict:
+    """qwen2-0.5b's decode_32k at the cell's shape: 128 rows over 32768
+    keys, every row whole, 24 ragged launches a step."""
+    import torch
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.roofline import (HBM_BW, analyze_record,
+                                             read_bytes)
+    from repro_torch.launch.sharding import make_shard_fn
+    from repro_torch.launch.steps import make_decode_step
+    cfg, cell, rec, model, params, cache, tokens = _cell_setup(
+        "qwen2-0.5b", "decode_32k", mesh, card)
+    handed = _bytes(params) + _bytes(cache) + _bytes(tokens)
+    args = rec["memory"]["argument_bytes"]
+    log(f"qwen2-0.5b decode_32k: the step is handed {handed} B (params "
+        f"{_bytes(params)} B {_dtypes(params)}, cache {_bytes(cache)} B "
+        f"{_dtypes(cache)}, tokens {_bytes(tokens)} B int32); the dry run's "
+        f"argument_bytes on the one-card mesh {args} B: equal "
+        f"{handed == args}")
+    if handed != args:
+        bad.append(f"decode_32k: argument bytes {handed} on the card, "
+                   f"{args} in the dry run")
+    rules, _ = rules_for(model)
+    step = make_decode_step(model, shard_fn=make_shard_fn(rules, mesh))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, logits = _cell_steps(step, params, cache, tokens)
+    counts = read_counts()
+    _collect(launched, "qwen2-0.5b decode_32k", full_rows=True)
+    finite = bool(torch.isfinite(logits).all())
+    want = dict.fromkeys(counts, 0)
+    want["ragged_decode"] = cfg.n_layers * (CELL_STEPS + 1)
+    row = analyze_record(dict(rec, status="ok", mesh_name="one card"))
+    read_ms = read_bytes(rec) / HBM_BW * 1e3
+    out = dict(ms=ms, tok_s=cell.batch / ms * 1e3, compute_ms=row.compute_s
+               * 1e3, memory_ms=row.memory_s * 1e3, read_ms=read_ms,
+               memory=_memory(), launches=counts)
+    log(f"qwen2-0.5b decode_32k (B {cell.batch}, {cell.seq} keys a row, "
+        f"bf16): {ms:.3f} ms a step (median of {CELL_STEPS}), "
+        f"{out['tok_s']:.1f} tok/s; roofline on one card: compute "
+        f"{out['compute_ms']:.3f} ms, memory {out['memory_ms']:.3f} ms "
+        f"(arguments + outputs, the donated cache counted twice), read-only "
+        f"bound {read_ms:.3f} ms ({args / 1e9:.2f} GB at {HBM_BW:.3e} B/s); "
+        f"{out['memory']}; logits finite {finite}; launches {counts}; on "
+        f"{card}")
+    if not finite or counts != want:
+        bad.append(f"decode_32k: finite {finite}, launches {counts}, "
+                   f"expected {want}")
+    return out
+
+
+def _long_500k(mesh, card, bad) -> dict:
+    """recurrentgemma-2b's long_500k: one row at position 524287 of
+    rolling window caches; no kernel launch (rolling local attention
+    takes plain decode attention, as the reference's does)."""
+    import torch
+    from repro_torch.launch.roofline import HBM_BW, analyze_record
+    from repro_torch.launch.dryrun import rules_for
+    from repro_torch.launch.sharding import make_shard_fn
+    from repro_torch.launch.steps import make_decode_step
+    cfg, cell, rec, model, params, cache, tokens = _cell_setup(
+        "recurrentgemma-2b", "long_500k", mesh, card)
+    rules, _ = rules_for(model)
+    step = make_decode_step(model, shard_fn=make_shard_fn(rules, mesh))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, logits = _cell_steps(step, params, cache, tokens)
+    counts = read_counts()
+    finite = bool(torch.isfinite(logits).all())
+    row = analyze_record(dict(rec, status="ok", mesh_name="one card"))
+    weights = _bytes(params)
+    out = dict(ms=ms, compute_ms=row.compute_s * 1e3,
+               memory_ms=row.memory_s * 1e3,
+               weight_ms=weights / HBM_BW * 1e3, memory=_memory(),
+               cache_bytes=_bytes(cache), launches=counts)
+    log(f"recurrentgemma-2b long_500k (B 1 at position {cell.seq - 1}, "
+        f"cache {out['cache_bytes'] / 2 ** 20:.1f} MiB, weights "
+        f"{_dtypes(params)}): {ms:.3f} ms a step (median of {CELL_STEPS}); "
+        f"roofline on one card: compute {out['compute_ms']:.4f} ms, memory "
+        f"{out['memory_ms']:.3f} ms, weight-read bound "
+        f"{out['weight_ms']:.3f} ms ({weights / 1e9:.2f} GB); "
+        f"{out['memory']}; logits finite {finite}; launches {counts}; on "
+        f"{card}")
+    if not finite or any(counts.values()):
+        bad.append(f"long_500k: finite {finite}, launches {counts}")
+    return out
+
+
+def serve_cells(card: str, sweep) -> dict:
+    """Phase 17: the dry run's sweep (``dryrun_sweep``), then two cells
+    stepped at their full shape on the card over a (1, 1) ("data",
+    "model") mesh of a one-process NCCL group, each step built by
+    ``make_decode_step`` with ``make_shard_fn`` installed: qwen2-0.5b
+    ``decode_32k`` and recurrentgemma-2b ``long_500k``; then a case for
+    each (kernel, dtype, shape) key they launched, held against its plain
+    version (phase 16's mechanism).  -> numbers and cases."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    summary = dryrun_sweep(sweep)
+    _free_card()
+    props = torch.cuda.get_device_properties(0)
+    from repro_torch.launch.roofline import HBM_BYTES
+    log(f"the card's total_memory {props.total_memory} B; the roofline's "
+        f"HBM_BYTES {HBM_BYTES} B: equal {props.total_memory == HBM_BYTES}")
+    bad, launched = [], {}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        decode = _decode_32k(mesh, card, bad, launched)
+        _free_card()
+        long = _long_500k(mesh, card, bad)
+        _free_card()
+    finally:
+        dist.destroy_process_group()
+    if bad:
+        raise AssertionError("; ".join(bad))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cases = []
+    for key in sorted(launched, key=repr):
+        n, runs, full = launched[key]
+        cases.append((key[0], _shape_case(key, n, ", ".join(sorted(runs)),
+                                          full, gen)))
+        _free_card()
+    log(f"phase 17 launched {len(launched)} (kernel, dtype, shape) keys, "
+        f"each held against its plain version: "
+        f"{[c['key'] for _, c in cases]}")
+    return {"dryrun": summary, "decode_32k": decode, "long_500k": long,
+            "cases": cases}
+
+
 def main() -> int:
+    started = time.perf_counter()
     # the deterministic phases' cuBLAS needs this before the first CUDA call
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
@@ -3744,6 +4057,7 @@ def main() -> int:
     if failed:
         log(f"FAILED phases: {failed}")
         return 1
+    sweep = start_dryrun(started)
     phase("kernels vs plain versions", check_kernels)
     phase("rglru_scan vs plain version", check_rglru)
     phase("flash_attention vs plain version", check_flash)
@@ -3801,10 +4115,14 @@ def main() -> int:
         planner = phase("the planner at full width: hints, a tuned plan "
                         "repository, adaptive", serve_planner, served[2],
                         served[3], served[1], card)
+    cells = phase("the dry run (every arch x cell x mesh) and two cells "
+                  "on the card: qwen2-0.5b decode_32k, recurrentgemma-2b "
+                  "long_500k", serve_cells, card, sweep)
     if failed or kernels is None or rg_kernel is None or flash is None \
             or surface is None or fleet is None or planner is None \
             or family is None or scan_grad is None or trained is None \
-            or ddp is None or rg_trained is None or encdec is None:
+            or ddp is None or rg_trained is None or encdec is None \
+            or cells is None:
         log(f"FAILED phases: {failed}")
         return 1
     # the kernels at phase 14's shapes and at every key phase 16 launched
@@ -3814,7 +4132,8 @@ def main() -> int:
                            for m in family["decode"]]
     flash["cases"] += family["flash"]
     for entry in kernels + [flash]:
-        entry["cases"] += [case for name, case in encdec["cases"]
+        entry["cases"] += [case for name, case in
+                           encdec["cases"] + cells["cases"]
                            if name == entry["name"]]
     # the scan's backward call: its launches on the training path
     rg_kernel["backward"] = dict(
@@ -3869,6 +4188,16 @@ def main() -> int:
         f"contiguous "
         f"{vl['tok_s']['contiguous']:.1f}, paged {vl['tok_s']['paged']:.1f} "
         f"tok/s, {vl['peak']:.2f} GiB; on {card}")
+    dec, lng = cells["decode_32k"], cells["long_500k"]
+    log(f"phase 17: dry run {cells['dryrun']['ok']} ok, "
+        f"{cells['dryrun']['skipped']} skipped in "
+        f"{cells['dryrun']['seconds']} s; qwen2-0.5b decode_32k "
+        f"{dec['ms']:.3f} ms a step, {dec['tok_s']:.1f} tok/s (roofline "
+        f"compute {dec['compute_ms']:.3f} ms, memory {dec['memory_ms']:.3f} "
+        f"ms, read-only {dec['read_ms']:.3f} ms), {dec['memory']}; "
+        f"recurrentgemma-2b long_500k {lng['ms']:.3f} ms a step (weight "
+        f"read {lng['weight_ms']:.3f} ms); script "
+        f"{time.perf_counter() - started:.0f} s; on {card}")
     print(json.dumps({"kernels": kernels + [flash, rg_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,11 @@ Contract:
     writes it on a background thread;
   * ``keep`` bounds disk usage (the oldest are pruned after a publish);
   * ``restore`` places each leaf on the device of the matching leaf of
-    ``like`` (sharded restores wait for the port's mesh).
+    ``like``, or with ``shardings`` (a tree of
+    ``launch.sharding.NamedSharding``) distributes it over that mesh as a
+    DTensor: a restore onto any mesh (elastic);
+  * a DTensor leaf is saved whole (``full_tensor``: every rank of its
+    mesh takes part in the snapshot).
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ def _is_leaf(x) -> bool:
 def _to_host(leaf):
     """-> (a host copy to store, the leaf's true dtype name)."""
     if torch.is_tensor(leaf):
+        if hasattr(leaf, "full_tensor"):          # a DTensor: gather it
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             bits = t.view(torch.int16).numpy().view(np.uint16)
@@ -140,10 +146,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, shardings: Any = None) -> Any:
         """Load step ``step`` into the structure of ``like`` (a tree of
         tensors): each leaf a tensor of the stored dtype on the device of
-        ``like``'s leaf.  A leaf count or shape that differs raises
+        ``like``'s leaf.  With ``shardings`` (the same tree of
+        ``NamedSharding``) each leaf is instead distributed over the
+        sharding's mesh (``distribute_tensor`` with its placements, from
+        the mesh's device).  A leaf count or shape that differs raises
         ValueError."""
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
@@ -167,10 +176,22 @@ class CheckpointManager:
                     arr.astype(np.dtype(manifest["dtypes"][i]), copy=False))
             device = ref.device if torch.is_tensor(ref) else "cpu"
             loaded.append(t.to(device))
-        return tree_unflatten(treedef, loaded)
+        tree = tree_unflatten(treedef, loaded)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            from repro_torch.launch.sharding import is_sharding
+            flat, _ = tree_flatten(shardings, is_sharding)
+            if len(flat) != len(loaded):
+                raise ValueError(f"{len(flat)} shardings for "
+                                 f"{len(loaded)} leaves")
+            tree = tree_unflatten(treedef, [
+                distribute_tensor(t.to(sh.mesh.device_type), sh.mesh,
+                                  sh.placements)
+                for t, sh in zip(loaded, flat)])
+        return tree
 
-    def restore_latest(self, like: Any):
+    def restore_latest(self, like: Any, shardings: Any = None):
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, self.restore(step, like)
+        return step, self.restore(step, like, shardings)

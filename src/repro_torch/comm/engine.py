@@ -141,3 +141,11 @@ class GradSyncEngine:
         synced = unpack_buckets(reduced, bplan)
         return (synced, new_state) if compressed else (synced, ())
 
+
+def sync_gradients(grads, category: Category,
+                   group: Optional[dist.ProcessGroup] = None, **kw):
+    """One-shot functional wrapper: ``grads`` all-reduced (the mean, by
+    default) over ``group`` (None: the default group) under
+    ``category``'s schedule."""
+    out, _ = GradSyncEngine(category, group=group, **kw)(grads)
+    return out

@@ -7,7 +7,8 @@ signatures (``repro.kernels.flash_attention.ops``, without
 launches its hand-written CUDA kernel on the current stream, or raises:
 there is no fallback.  The kernels are forward only: under grad mode a
 CUDA input that requires grad raises.  For a CPU tensor each runs its
-plain PyTorch version (``ref.py``).  Each wrapper counts its kernel launches in
+plain PyTorch version (``ref.py``), and so for a meta tensor (shapes
+with no data: the dry run), which holds nothing a kernel could read.  Each wrapper counts its kernel launches in
 ``LAUNCHES``: one per wrapper call, though a decode call is two CUDA
 launches (the split pass and the combine pass); ``SHAPE_LAUNCHES``
 counts the same launches by the signature each ran at.
@@ -25,7 +26,7 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      ragged_decode_ref)
 
 #: kernel launches since the last ``reset_launch_counts()``; plain-version
-#: calls on CPU tensors do not count
+#: calls on CPU and meta tensors do not count
 LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
 #: the same launches keyed by (kernel, dtype, shape): the shape is (B, Sq,
 #: Sk, Hq, Hkv, dh, causal, window, softcap) for ``flash_attention``, (B,
@@ -34,6 +35,8 @@ LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
 SHAPE_LAUNCHES: Dict[Tuple[str, str, tuple], int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: devices whose tensors take the plain version
+_PLAIN = ("cpu", "meta")
 _MAX_DH = 256         # the largest head_dim of every attention kernel
 #: keys of a row that one split block of a decode kernel owns
 DECODE_CHUNK = 128
@@ -75,7 +78,8 @@ def _refuse_grad(name, *tensors) -> None:
 def _check_common(q, k, v, cur_index, name):
     if q.device.type != "cuda":
         raise RuntimeError(f"{name}: tensors on {q.device} have no kernel; "
-                           f"the plain version serves only CPU tensors")
+                           f"the plain version serves only CPU and meta "
+                           f"tensors")
     _refuse_grad(name, q, k, v)
     for t, what in ((k, "k"), (v, "v"), (cur_index, "cur_index")):
         if t.device != q.device:
@@ -134,7 +138,7 @@ def flash_decode_attention(q, k_cache, v_cache, cur_index, *,
     q: (B, 1, Hq, dh); k_cache/v_cache: (B, Smax, Hkv, dh); cur_index:
     (B,) int32 — row b attends to positions [0, cur_index[b]].
     -> (B, 1, Hq, dh) in q's dtype."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return ragged_decode_ref(q, k_cache, v_cache, cur_index,
                                  softcap=softcap)
     b, g, hkv, dh = _check_common(q, k_cache, v_cache, cur_index,
@@ -164,7 +168,7 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table,
     pages; page_table: (B, max_pages) int32 — logical page j of row b is
     physical page ``page_table[b, j]`` (sentinel N = unmapped, clipped to
     N-1); cur_index: (B,) int32.  -> (B, 1, Hq, dh)."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return paged_decode_ref(q, k_pages, v_pages, page_table, cur_index,
                                 softcap=softcap)
     b, g, hkv, dh = _check_common(q, k_pages, v_pages, cur_index,
@@ -206,13 +210,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     only: on the card, under grad mode, an input that requires grad
     raises."""
     del q_block, kv_block
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: tensors on {q.device} have no "
-                           f"kernel; the plain version serves only CPU "
-                           f"tensors")
+                           f"kernel; the plain version serves only CPU and "
+                           f"meta tensors")
     for t, what in ((k, "k"), (v, "v")):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {what} on {t.device}, q on "

@@ -7,7 +7,8 @@ stream, or raises: there is no fallback.  The kernel is a chunked
 two-pass scan: T is cut into chunks by ``scan_chunks``, pass 1 reduces
 each chunk to its product of ``a`` and its end state, pass 2 folds the
 chunks before each into its carry and walks it.  For a CPU tensor it runs
-the plain PyTorch version (``ref.py``).  Launches are counted in
+the plain PyTorch version (``ref.py``), and so for a meta tensor (shapes
+with no data: the dry run).  Launches are counted in
 ``LAUNCHES``: one per kernel call, though a call is two CUDA launches.
 
 Under grad mode, with an input that requires grad, the scan runs as an
@@ -29,7 +30,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
 
 #: kernel launches since the last ``reset_launch_counts()``; plain-version
-#: calls on CPU tensors do not count
+#: calls on CPU and meta tensors do not count
 LAUNCHES = {"rglru_scan": 0}
 #: of those, the launches made by ``scan_backward``
 BACKWARD_LAUNCHES = {"scan_backward": 0}
@@ -115,13 +116,14 @@ def scan_backward(a, h, g, x_dtype):
 
 def _scan(a, x, backward: bool = False):
     """One call of the kernel (CUDA tensors) or of its plain version (CPU
-    tensors); ``backward`` marks ``scan_backward``'s call for its count."""
-    if a.device.type == "cpu" and x.device.type == "cpu":
+    or meta tensors); ``backward`` marks ``scan_backward``'s call for its count."""
+    if a.device.type == x.device.type and a.device.type in ("cpu", "meta"):
         return rglru_scan_ref(a, x)
     if a.device.type != "cuda" or x.device != a.device:
         raise RuntimeError(f"rglru_scan: a on {a.device}, x on {x.device}: "
                            f"the kernel needs both on one CUDA device; the "
-                           f"plain version serves only CPU tensors")
+                           f"plain version serves only CPU and meta "
+                           f"tensors")
     if a.dtype not in _DTYPES or x.dtype not in _DTYPES:
         raise TypeError(f"rglru_scan: dtypes {a.dtype}, {x.dtype} not "
                         f"supported (float32, bfloat16)")

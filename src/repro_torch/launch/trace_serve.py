@@ -7,6 +7,7 @@
         --max-len 4096 --prompt-lens 1023,1024,1025,1500,2047,2049,3000,4000
     python -m repro_torch.launch.trace_serve --arch granite-moe-1b-a400m \
         --max-len 1024 --prompt-lens 64,128,256,512,64,128,256,512
+    python -m repro_torch.launch.trace_serve --cell qwen2-0.5b:decode_32k
 
 Draws full-width weights on the card (``torch.Generator`` seed 0), warms
 the engine up (kernel builds, library handles) on two short requests,
@@ -26,6 +27,13 @@ one JSON line per window.  The 4 graph horizons after those are timed
 again unprofiled (host seconds only, a fourth line): the profiler's
 tracing costs time per kernel, which the graph's short gaps show.  The
 run continues unprofiled to the end.
+
+``--cell ARCH:CELL`` traces a decode cell of ``launch.shapes`` instead,
+as ``chip_smoke.py`` phase 17 steps it: ``Model.decode_step`` (built by
+``make_decode_step``) at the cell's batch over a cache of the cell's
+length filled from a generator, ``idx`` at its last position, weights in
+the dry run's ``params_bf16`` dtypes; one untimed step, a profiled
+window of 4 steps, then the same 4 steps timed unprofiled.
 Needs a CUDA device; the numbers are the card's, with its name and power
 limit.
 """
@@ -42,7 +50,11 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.plan import EndpointPlan
+from repro_torch.launch.dryrun import bf16_params
+from repro_torch.launch.shapes import SHAPES
+from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import Model
+from repro_torch.models.params import tree_leaves
 from repro_torch.serve.engine import ContinuousEngine, Request
 
 #: recurrentgemma-2b's serving workload in ``chip_smoke.py``: four prompts
@@ -171,6 +183,54 @@ def trace(eng, prompts, max_new: int = MAX_NEW,
     return [admission, eager, graph, unprofiled]
 
 
+def cell_inputs(model: Model, cell, seed: int = 1):
+    """The cache of a decode ``cell`` on the model's device, every
+    floating leaf drawn from a ``torch.Generator`` seeded with ``seed``
+    and ``idx`` at the cell's last position (each step reads every key),
+    and the cell's tokens.  -> (cache, tokens)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    cache = model.init_cache(cell.batch, max_len=cell.seq)
+    for leaf in tree_leaves(cache["stack"], torch.is_tensor):
+        leaf.normal_(generator=gen)
+    cache["idx"].fill_(cell.seq - 1)
+    tokens = torch.randint(0, model.cfg.vocab, (cell.batch,), generator=gen,
+                           device=model.device, dtype=torch.int32)
+    return cache, tokens
+
+
+def trace_cell(arch: str, cell_name: str, steps: int = DECODE_CALLS,
+               top: int = TOP) -> list:
+    """Profile ``steps`` decode steps of a decode cell (module
+    docstring), then time as many unprofiled; -> the two windows."""
+    cell = SHAPES[cell_name]
+    if cell.kind != "decode":
+        raise ValueError(f"{cell_name}: --cell traces decode cells")
+    model = Model(get_config(arch), "cuda")
+    params = bf16_params(model.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    cache, tokens = cell_inputs(model, cell)
+    step = make_decode_step(model)
+    step(params, cache, tokens)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(params, cache, tokens)
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    win = _window(f"{cell_name} decode steps", prof, host, top)
+    win.update(decode_steps=steps, batch=cell.batch)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(params, cache, tokens)
+    torch.cuda.synchronize()
+    return [win, {"window": f"{cell_name} decode steps unprofiled",
+                  "host_s": time.perf_counter() - t0,
+                  "decode_steps": steps, "batch": cell.batch}]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="recurrentgemma-2b",
@@ -178,11 +238,19 @@ def main(argv=None):
     ap.add_argument("--prompt-lens", default=",".join(
         map(str, DEFAULT_PROMPTS)))
     ap.add_argument("--max-len", type=int, default=4096)
+    ap.add_argument("--cell", default=None,
+                    help="ARCH:CELL, a decode cell of launch.shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("trace_serve measures the card: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = _card()
+    if args.cell:
+        arch, cell_name = args.cell.split(":")
+        for win in trace_cell(arch, cell_name):
+            win.update(arch=arch, card=card)
+            print(json.dumps(win))
+        return
     cfg = get_config(args.arch)
     params = Model(cfg, "cuda").init(
         torch.Generator(device="cuda").manual_seed(0))

@@ -9,7 +9,9 @@ schedules (``--endpoint`` picks the category).  It joins the process
 group that ``torchrun``'s environment names (``RANK``, ``WORLD_SIZE``,
 ``MASTER_ADDR``, ``MASTER_PORT``; each rank on card ``LOCAL_RANK``), or
 else forms a one-process group on a free localhost port: NCCL on the
-card, gloo on the CPU.  ``--mode jit`` runs the single-process step.
+card, gloo on the CPU; its mesh is every rank on one "data" axis
+(``launch.mesh.make_mesh``), whose group the gradient sync runs over.
+``--mode jit`` runs the single-process step.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.endpoints import Category
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.train.loop import TrainConfig, Trainer
 
 
@@ -69,14 +72,18 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = args.device
+    mesh = None
     if args.mode == "ddp":
         device = join_group(device)
+        mesh = make_mesh((dist.get_world_size(),), ("data",),
+                         device_type=torch.device(device).type)
     try:
         tc = TrainConfig(
             seq_len=args.seq, global_batch=args.batch, n_steps=args.steps,
             peak_lr=args.lr, checkpoint_dir=args.ckpt_dir,
             checkpoint_every=args.ckpt_every, mode=args.mode,
-            endpoint_category=Category(args.endpoint), device=device)
+            endpoint_category=Category(args.endpoint), mesh=mesh,
+            device=device)
         trainer = Trainer(cfg, tc)
         logs = trainer.train()
         trainer.save_metrics(args.metrics)

@@ -233,6 +233,14 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, cur_index, *,
     return attention_decode(q, kg, vg, cur_index, softcap=softcap)
 
 
+def kernel_route(device: torch.device) -> bool:
+    """Whether attention on ``device`` takes the card's route, the kernel
+    wrappers: CUDA tensors launch the kernels, and meta tensors (shapes
+    only: the dry run of a cell on the card) go the same way, to the
+    wrappers' plain versions."""
+    return device.type in ("cuda", "meta")
+
+
 def select_attention(cfg: ArchConfig, seq_len: int,
                      skip_future: bool = False, on_card: bool = False):
     """With ``on_card``, the flash kernel's wrapper at every length;

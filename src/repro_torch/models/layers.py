@@ -19,6 +19,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.params import ParamSpec
 
+def no_sharding(a, *logical_axes):
+    """The default ``shard_fn`` hook: the tensor itself (no sharding
+    constraint; ``launch.sharding.make_shard_fn`` builds the other)."""
+    return a
+
+
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------

@@ -33,10 +33,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import params as P
-from repro_torch.models.attention import select_attention
+from repro_torch.models.attention import kernel_route, select_attention
 from repro_torch.models.layers import (apply_norm, compute_dtype,
                                        embed_specs, embed_tokens,
-                                       head_matrix, norm_specs)
+                                       head_matrix, no_sharding, norm_specs)
 from repro_torch.models.losses import chunked_softmax_xent
 from repro_torch.models.transformer import (ATTN_KINDS, BlockCtx,
                                             apply_stack, fit_cross_cache,
@@ -46,7 +46,9 @@ from repro_torch.models.transformer import (ATTN_KINDS, BlockCtx,
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Raises RuntimeError when CUDA is asked
-    for and absent: the port never carries on on the CPU unasked."""
+    for and absent: the port never carries on on the CPU unasked.  The
+    meta device (shapes with no storage: the dry run, the roofline) is
+    taken only when the caller names it."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -83,6 +85,16 @@ class Model:
         """Fresh weights drawn from ``generator`` (the reference's init
         distributions, torch's random stream), fp32 on this device."""
         return P.materialize(self.param_specs(), generator, self.device)
+
+    def abstract_params(self):
+        """Every parameter as a meta tensor of its spec's shape and
+        dtype (fp32): the tree ``init`` would draw, with no storage."""
+        return P.abstract(self.param_specs())
+
+    def param_axes(self):
+        """Every parameter's logical axis names (the sharding rules'
+        keys), in the parameter tree's layout."""
+        return P.axes_tree(self.param_specs())
 
     def n_params(self) -> int:
         return P.n_params(self.param_specs())
@@ -145,8 +157,9 @@ class Model:
         return apply_norm(params["enc_final_norm"], h, cfg.norm)
 
     def forward(self, params, batch, *, mode="prefill", cache=None,
-                remat=False, skip_future=False, use_ragged_kernel=False,
-                decode_write_mask=None, step_active=None):
+                shard_fn=no_sharding, remat=False, skip_future=False,
+                use_ragged_kernel=False, decode_write_mask=None,
+                step_active=None):
         """-> (hidden (B,S,d), new_cache, aux_loss fp32 0-d).  A decode step
         needs ``step_active`` (0-d bool tensor): off, the step advances no
         ``idx`` and leaves the recurrent state alone.  ``mode="train"``
@@ -154,11 +167,14 @@ class Model:
         kernel is forward only) and, with ``remat``, checkpoints the stack
         as the reference does.  An enc-dec model runs its encoder unless
         decoding; its prefill gives the cross caches the encoder's
-        length."""
+        length.  ``shard_fn(tensor, *logical_axes)`` is called on the
+        decoder's residual stream and the MoE dispatch buffers
+        (``launch.sharding.make_shard_fn``; the identity by default); the
+        encoder runs without it, as the reference's does."""
         cfg = self.cfg
         x, pos = self._inputs(params, batch)
         b, s = x.shape[:2]
-        on_card = x.device.type == "cuda" and mode != "train"
+        on_card = kernel_route(x.device) and mode != "train"
         cache = cache or {}
         enc_out = None
         if cfg.is_encdec and mode != "decode":
@@ -172,6 +188,7 @@ class Model:
                 cfg, s, skip_future=skip_future and mode == "prefill",
                 on_card=on_card),
             enc_out=enc_out,
+            shard_fn=shard_fn,
             decode_idx=cache.get("idx"),
             window_cache=self.window_cache,
             ragged_kernel=use_ragged_kernel and mode == "decode",
@@ -192,7 +209,7 @@ class Model:
         return h, new_cache, aux
 
     # ----- training ------------------------------------------------------
-    def loss_fn(self, params, batch, remat: bool = True,
+    def loss_fn(self, params, batch, shard_fn=no_sharding, remat: bool = True,
                 cast_params_once: bool = False):
         """-> (loss, metrics) with metrics ``nll``, ``n_tokens``, ``loss``
         and, for MoE models, ``moe_aux`` (all fp32 0-d tensors).
@@ -206,7 +223,8 @@ class Model:
                 lambda p: p.to(self.dtype)
                 if p.dtype == torch.float32 and p.dim() >= 2 else p,
                 params, torch.is_tensor)
-        h, _, aux = self.forward(params, batch, mode="train", remat=remat)
+        h, _, aux = self.forward(params, batch, mode="train",
+                                 shard_fn=shard_fn, remat=remat)
         head = head_matrix(params["embed"], cfg)
         nll, n_tok = chunked_softmax_xent(h, head, batch["labels"],
                                           mask=batch.get("loss_mask"))
@@ -270,13 +288,14 @@ class Model:
         head = head_matrix(params["embed"], self.cfg)
         return (h @ head.to(h.dtype)).float()
 
-    def prefill(self, params, batch, cache, skip_future: bool = True,
-                last_index=None):
+    def prefill(self, params, batch, cache, shard_fn=no_sharding,
+                skip_future: bool = True, last_index=None):
         """Run the prompt, fill the cache; -> (last_logits, cache).
         ``last_index`` ((B,) int) gathers each row's logits at its own
         last real token (bucketed prefill pads prompts at the end)."""
         h, new_cache, _ = self.forward(params, batch, mode="prefill",
-                                       cache=cache, skip_future=skip_future)
+                                       cache=cache, shard_fn=shard_fn,
+                                       skip_future=skip_future)
         if last_index is None:
             last = h[:, -1, :]
         else:
@@ -285,8 +304,8 @@ class Model:
         return self._logits(params, last), new_cache
 
     def decode_step(self, params, cache, tokens=None, embeds=None,
-                    use_ragged_kernel=False, write_mask=None,
-                    step_active=None):
+                    shard_fn=no_sharding, use_ragged_kernel=False,
+                    write_mask=None, step_active=None):
         """One decode step.  tokens: (B,) int, or embeds: (B, d) for
         embeddings input (M-RoPE positions: ``idx`` on all three
         streams).  -> (logits (B,V) fp32, new_cache).  An enc-dec decoder
@@ -316,7 +335,7 @@ class Model:
                                      device=self.device)
         batch["positions"] = pos
         h, new_cache, _ = self.forward(
-            params, batch, mode="decode", cache=cache,
+            params, batch, mode="decode", cache=cache, shard_fn=shard_fn,
             use_ragged_kernel=use_ragged_kernel,
             decode_write_mask=write_mask, step_active=step_active)
         return self._logits(params, h[:, 0, :]), new_cache

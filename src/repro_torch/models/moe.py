@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-from repro_torch.models.layers import apply_ffn, ffn_specs
+from repro_torch.models.layers import apply_ffn, ffn_specs, no_sharding
 from repro_torch.models.params import ParamSpec
 
 
@@ -91,9 +91,12 @@ def _experts(p, buf, act: str):
     return torch.einsum("becf,efd->becd", h, p["w_down"].to(dt))
 
 
-def apply_moe(p, x, cfg: ArchConfig):
+def apply_moe(p, x, cfg: ArchConfig, shard_fn=no_sharding):
     """x: (B, S, d) -> (out (B, S, d), aux_loss fp32 0-d).  Capacity is
-    per row: ``cap = _capacity(S, moe)``, overflow drops."""
+    per row: ``cap = _capacity(S, moe)``, overflow drops.
+    ``shard_fn(tensor, *logical_axes)`` constrains the dispatch buffers
+    where the reference's does, at the reference's shapes (identity by
+    default)."""
     mo = cfg.moe
     b, s, d = x.shape
     dt = x.dtype
@@ -121,17 +124,22 @@ def apply_moe(p, x, cfg: ArchConfig):
 
     rows = torch.arange(b, device=dev)[:, None]
     # kept slots are unique; dropped pairs land in the dump row e * cap
+    gathered = shard_fn(x.gather(1, tok_of_slot[..., None].expand(b, n, d)),
+                        "batch", None, None)
     buf = torch.zeros((b, e * cap + 1, d), dtype=dt, device=dev)
-    buf[rows, torch.where(keep, slot, e * cap)] = x.gather(
-        1, tok_of_slot[..., None].expand(b, n, d))
-    expert_out = _experts(p, buf[:, :e * cap].reshape(b, e, cap, d),
-                          cfg.act)
+    buf[rows, torch.where(keep, slot, e * cap)] = gathered
+    buf = shard_fn(buf[:, :e * cap], "batch", "expert_flat", None)
+    buf = shard_fn(buf.reshape(b, e, cap, d), "batch", "expert", None, None)
+    expert_out = shard_fn(_experts(p, buf, cfg.act),
+                          "batch", "expert", None, None)
 
     # --- combine: each slot's weighted output, back to token order ---
-    flat_out = expert_out.reshape(b, e * cap, d)
+    flat_out = shard_fn(expert_out.reshape(b, e * cap, d),
+                        "batch", "expert_flat", None)
     weight = keep.to(dt)
-    slot_vals = (flat_out.gather(1, slot[..., None].expand(b, n, d))
-                 * (weight * gate_of_slot.to(dt))[..., None])
+    slot_vals = shard_fn(
+        flat_out.gather(1, slot[..., None].expand(b, n, d))
+        * (weight * gate_of_slot.to(dt))[..., None], "batch", None, None)
     # slot j of the row holds flat pair order[j]: invert, then take each
     # token's k pairs in slot order (expert id ascending)
     inv = torch.empty_like(order).scatter_(
@@ -143,6 +151,7 @@ def apply_moe(p, x, cfg: ArchConfig):
     combined = torch.zeros((b, s, d), dtype=dt, device=dev)
     for i in range(k):
         combined = combined + contrib[:, :, i]
+    combined = shard_fn(combined, "batch", None, None)
 
     if mo.n_shared:
         combined = combined + apply_ffn(p["shared"], x, cfg.act)

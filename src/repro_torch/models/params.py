@@ -8,6 +8,9 @@ dicts and lists, scanned body layers stacked on a leading ``layers`` axis.
   reference's init distributions from a ``torch.Generator``.  The stream
   is torch's, not JAX's: parity tests move JAX's own weights across with
   ``from_numpy`` instead.
+* ``abstract`` / ``axes_tree`` give every leaf as a meta tensor (shape
+  and dtype, no storage) and its logical axis names, for the sharding
+  rules and the dry run.
 * ``from_numpy`` / ``to_numpy`` convert a tree of numpy arrays (what
   ``jax.device_get`` returns for the reference's params) to tensors and
   back, bit-exact on every leaf.
@@ -142,6 +145,18 @@ def materialize(spec_tree, generator: torch.Generator, device):
     drawn = {id(s): _init_one(s, generator).to(device)
              for s in tree_leaves(spec_tree, is_spec)}
     return tree_map(lambda s: drawn[id(s)], spec_tree, is_spec)
+
+
+def abstract(spec_tree):
+    """Meta tensors of every spec's shape and dtype: the tree's shapes
+    with no storage (``jax.ShapeDtypeStruct``'s counterpart)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree, is_spec)
+
+
+def axes_tree(spec_tree):
+    """Every spec's logical axis names, in the tree's layout."""
+    return tree_map(lambda s: s.axes, spec_tree, is_spec)
 
 
 def n_params(spec_tree) -> int:

@@ -36,10 +36,12 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_decode_attention, paged_flash_decode_attention)
 from repro_torch.models.attention import (attention_decode,
                                           attention_decode_paged,
-                                          attn_specs, project_kv,
-                                          project_out, project_q)
+                                          attn_specs, kernel_route,
+                                          project_kv, project_out,
+                                          project_q)
 from repro_torch.models.layers import (apply_ffn, apply_norm, apply_rope,
-                                       compute_dtype, ffn_specs, norm_specs)
+                                       compute_dtype, ffn_specs, no_sharding,
+                                       norm_specs)
 from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import stack_specs, tree_map
 from repro_torch.models.recurrent import (apply_rglru_block,
@@ -149,6 +151,7 @@ class BlockCtx:
     causal: bool = True
     enc_out: Any = None               # (B, Se, d) encoder memory for
     #                                   cross-attention (enc-dec)
+    shard_fn: Any = no_sharding       # (tensor, *logical axes) -> tensor
     decode_idx: Any = None            # (B,) or scalar int32 cache index
     window_cache: bool = False        # rolling window KV cache
     ragged_kernel: bool = False       # CPU: decode via the kernels' plain
@@ -252,7 +255,7 @@ def _self_attention(p, h, ctx: BlockCtx, window: int, cache):
     if cfg.pos != "none":
         q = apply_rope(q, ctx.positions, cfg)
         k = apply_rope(k, ctx.positions, cfg)
-    on_card = h.device.type == "cuda"
+    on_card = kernel_route(h.device)
 
     if ctx.mode == "decode" and ctx.page_table is not None:
         _attn_cache_write_paged(cache, k, v, ctx.decode_idx, ctx.page_table,
@@ -325,7 +328,7 @@ def _cross_attention(p, h, ctx: BlockCtx, cache):
         return project_out(p, out, h.dtype)
     k, v = cache["k"], cache["v"]
     last = k.shape[1] - 1
-    if h.device.type == "cuda" or ctx.ragged_kernel:
+    if kernel_route(h.device) or ctx.ragged_kernel:
         cur = torch.full((q.shape[0],), last, dtype=torch.int32,
                          device=q.device)
         out = flash_decode_attention(q, k, v, cur)
@@ -360,7 +363,7 @@ def apply_block(p, x, desc: LayerDesc, ctx: BlockCtx, cache=None):
         return x, None
     h2 = apply_norm(p["norm2"], x, cfg.norm)
     if desc.ffn == "moe":
-        out, aux = apply_moe(p["moe"], h2, cfg)
+        out, aux = apply_moe(p["moe"], h2, cfg, shard_fn=ctx.shard_fn)
         return x + out, aux
     return x + apply_ffn(p["ffn"], h2, cfg.act), None
 
@@ -474,12 +477,23 @@ def apply_stack(params, x, cfg: ArchConfig, plan: LayerPlan, ctx: BlockCtx,
     than one block each block (nested); and, from 4 periods on, groups of
     ``_remat_group(n_periods)`` periods under one more checkpoint.  The
     backward then keeps only checkpoint inputs and recomputes the rest
-    (``remat_forward_counts`` says how often each block runs)."""
+    (``remat_forward_counts`` says how often each block runs).
+
+    The residual stream goes through ``ctx.shard_fn(x, "batch", "seq",
+    None)`` on entry and after every block, as the reference constrains
+    it (batch over the data axes; seq over "model" under sequence
+    parallelism)."""
     train_remat = remat and ctx.mode == "train"
     aux = None
+    shard_fn = ctx.shard_fn
 
     def block(p, desc, c):
-        return lambda xx: apply_block(p, xx, desc, ctx, c)
+        def run(xx):
+            xx, a = apply_block(p, xx, desc, ctx, c)
+            return shard_fn(xx, "batch", "seq", None), a
+        return run
+
+    x = shard_fn(x, "batch", "seq", None)
 
     for i, desc in enumerate(plan.prefix):
         c = cache["prefix"][i] if cache is not None else None

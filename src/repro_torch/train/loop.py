@@ -2,13 +2,14 @@
 ``repro.train.loop``).
 
 Two step flavors:
-  * ``jit``: the single-process step (``launch.steps.make_train_step``);
+  * ``jit``: the single-process step (``launch.steps.make_train_step``),
+    with ``make_shard_fn(rules, mesh)`` installed when the config names
+    a mesh and rules;
   * ``ddp``: the data-parallel step whose gradient sync the
     scalable-endpoints engine schedules by ``endpoint_category``, over
-    the default ``torch.distributed`` process group (which must be
-    initialized: ``launch.train`` forms it).
-The mesh and sharding rules of the reference's jit mode wait for the
-port's mesh.
+    the mesh's "data" group, or the default ``torch.distributed`` process
+    group without a mesh (either must be initialized: ``launch.train``
+    forms it and its mesh).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -43,6 +44,8 @@ class TrainConfig:
     seed: int = 0
     mode: str = "jit"            # jit | ddp
     endpoint_category: Category = Category.TWO_X_DYNAMIC
+    mesh: Optional[Any] = None   # a DeviceMesh (launch.mesh.make_mesh)
+    rules: Optional[dict] = None  # jit mode: sharding rules over the mesh
     remat: bool = True
     accum_steps: int = 1
     device: Optional[str] = None  # None: the card
@@ -64,11 +67,18 @@ class Trainer:
         self.comp_state = ()
 
         if tc.mode == "ddp":
+            group = (tc.mesh.get_group("data") if tc.mesh is not None
+                     else None)
             self._step, self.engine = make_ddp_train_step(
-                self.model, self.opt, category=tc.endpoint_category)
+                self.model, self.opt, group=group,
+                category=tc.endpoint_category)
         elif tc.mode == "jit":
+            shard_fn = None
+            if tc.mesh is not None and tc.rules is not None:
+                from repro_torch.launch.sharding import make_shard_fn
+                shard_fn = make_shard_fn(tc.rules, tc.mesh)
             self._step = make_train_step(self.model, self.opt,
-                                         remat=tc.remat,
+                                         shard_fn=shard_fn, remat=tc.remat,
                                          accum_steps=tc.accum_steps)
         else:
             raise ValueError(f"mode {tc.mode!r}: jit or ddp")

@@ -1461,3 +1461,76 @@ def test_serving_tokens_unchanged_by_the_norm_function(cuda, monkeypatch):
     monkeypatch.setattr(transformer, "apply_norm", _plain_norm)
     monkeypatch.setattr(model_mod, "apply_norm", _plain_norm)
     assert torch.equal(serve(), with_function)
+
+
+def test_hooked_decode_step_equals_the_unhooked_on_the_card(cuda):
+    """fp32 smoke qwen2: a decode step with ``make_shard_fn`` over a
+    (1, 1) mesh of a one-process NCCL group, every activation made a
+    DTensor and redistributed, equals the unhooked step bit for bit, and
+    both launch the ragged kernel once a layer."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import fsdp_tp_sp_rules, make_shard_fn
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        inner = make_shard_fn(fsdp_tp_sp_rules(), mesh)
+
+        def shard_fn(a, *names):
+            d = DTensor.from_local(a, mesh, [Replicate(), Replicate()])
+            return inner(d, *names).to_local()
+
+        cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                                  compute_dtype="float32")
+        model = Model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        tok = torch.arange(4, dtype=torch.int32, device=cuda) + 3
+        outs = []
+        for fn in (None, shard_fn):
+            kw = {} if fn is None else {"shard_fn": fn}
+            cache = model.init_cache(4, 32)
+            _, cache = model.prefill(params, {"tokens": tok[:, None].expand(
+                4, 6).contiguous()}, cache, **kw)
+            ops.reset_launch_counts()
+            logits, cache = model.decode_step(params, cache, tokens=tok,
+                                              **kw)
+            assert ops.LAUNCHES["ragged_decode"] == cfg.n_layers
+            outs.append((logits, cache["stack"]))
+        assert torch.equal(outs[0][0], outs[1][0])
+        from repro_torch.models.params import tree_leaves
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(outs[0][1], torch.is_tensor),
+            tree_leaves(outs[1][1], torch.is_tensor)))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_lower_cell_runs_beside_the_card(cuda):
+    """The dry run of one cell in a subprocess (its fake process group
+    cannot share a process with NCCL) on the card's machine."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    code = ("import json\n"
+            "from repro_torch.launch import dryrun\n"
+            "rec = dryrun.run_one('qwen2-0.5b', 'decode_32k', 'single')\n"
+            "print('REC ' + json.dumps(rec))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    rec = json.loads(next(l for l in res.stdout.splitlines()
+                          if l.startswith("REC "))[4:])
+    assert rec["status"] == "ok" and rec["n_chips"] == 256
+    assert rec["memory"]["argument_bytes"] > 0

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package, entry points refuse to carry on without
-a card unless asked for the CPU, and the kernel wrappers route only CPU
-tensors to their plain versions."""
+a card unless asked for the CPU (or the meta device, by name), and the
+kernel wrappers route only CPU and meta tensors to their plain
+versions."""
 
 import ast
 import os
@@ -67,6 +68,56 @@ def test_importing_every_module_loads_no_jax_or_repro():
             "repro_torch.launch.tune", "repro_torch.core.ibsim.costmodel",
             "repro_torch.core.ibsim.engine",
             "repro_torch.core.ibsim.benchmark"} <= set(modules)
+    # the launch/ analysis tools are in the scan
+    assert {"repro_torch.launch.shapes", "repro_torch.launch.sharding",
+            "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+            "repro_torch.launch.op_analysis",
+            "repro_torch.launch.dryrun"} <= set(modules)
+
+
+def test_importing_the_dry_run_joins_no_process_group():
+    """Unlike the reference's dryrun (which sets XLA_FLAGS at import),
+    importing the port's sets nothing and joins no group: its fake group
+    is joined only inside its own functions."""
+    code = (
+        "import os\n"
+        "env = dict(os.environ)\n"
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.shapes\n"
+        "assert not dist.is_initialized()\n"
+        "assert dict(os.environ) == env\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "OK" in res.stdout
+
+
+def test_wrappers_take_the_plain_versions_for_meta_tensors():
+    """A meta tensor (the dry run) goes where a CPU tensor goes: the
+    plain version, no launch, the kernel's output shape and dtype."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    meta = dict(device="meta")
+    q = torch.empty((2, 1, 6, 8), dtype=torch.bfloat16, **meta)
+    k = torch.empty((2, 16, 2, 8), dtype=torch.bfloat16, **meta)
+    cur = torch.empty((2,), dtype=torch.int32, **meta)
+    pt = torch.empty((2, 2), dtype=torch.int32, **meta)
+    ops.reset_launch_counts()
+    rglru_ops.reset_launch_counts()
+    out = ops.flash_decode_attention(q, k, k, cur)
+    assert out.shape == q.shape and out.is_meta and out.dtype == q.dtype
+    pages = torch.empty((4, 8, 2, 8), dtype=torch.bfloat16, **meta)
+    assert ops.paged_flash_decode_attention(q, pages, pages, pt,
+                                            cur).shape == q.shape
+    qs = torch.empty((2, 5, 6, 8), dtype=torch.bfloat16, **meta)
+    assert ops.flash_attention(qs, k, k).shape == qs.shape
+    a = torch.empty((2, 9, 5), **meta)
+    assert rglru_ops.rglru_scan(a, a).is_meta
+    assert not any(ops.LAUNCHES.values()) and not ops.SHAPE_LAUNCHES
+    assert not any(rglru_ops.LAUNCHES.values())
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
