@@ -193,16 +193,18 @@ Phases (any failure exits non-zero, without the final result line):
    version and timed beside SDPA, its ``launches`` the key's count
    (added to phase 12's cases); the phase fails if a key has no passing
    case.
-17. (last; its sweep starts right after phase 2) the dry run
-   ``python -m repro_torch.launch.dryrun --all --mesh both`` in a
-   subprocess at the lowest CPU priority beside phases 3 to 16 (its fake
-   process group cannot share a process with NCCL): every arch x cell x
-   mesh on meta tensors, 64 ok and 16 skipped, none failed; its seconds,
-   slowest cells, the roofline table with the H100's constants and
-   ``auto_accum`` of each train cell printed.  Then, over a (1, 1)
+17. (last) the dry run ``python -m repro_torch.launch.dryrun --all
+   --mesh both`` in a subprocess (its fake process group cannot share a
+   process with NCCL) with a worker on every core, after phase 16 and
+   alone, so that no timed phase shares the host with it: every arch x
+   cell x mesh on meta tensors, 64 ok and 16 skipped, none failed; its
+   seconds, slowest cells, the roofline table with the H100's constants
+   and ``auto_accum`` of each train cell printed.  Then, over a (1, 1)
    ("data", "model") mesh of a one-process NCCL group, steps built by
-   ``make_decode_step`` with ``make_shard_fn`` installed, weights from
-   seed 0 in the dry run's ``params_bf16`` dtypes: qwen2-0.5b
+   ``make_decode_step`` with ``make_shard_fn`` installed (an identity
+   here: the step's tensors are plain, not DTensors), set up by
+   ``trace_serve.cell_setup``, weights from seed 0 in the dry run's
+   ``params_bf16`` dtypes: qwen2-0.5b
    ``decode_32k`` at full width and depth (128 rows, a 32768-key bf16
    cache filled from a generator, ``idx`` 32767, so every step reads
    every key of every row), one untimed step and the median of 8, gated
@@ -3735,79 +3737,65 @@ def serve_encdec_embeds(card: str) -> dict:
 
 # ----- phase 17 --------------------------------------------------------------
 
-#: the dry run's sweep: started after the build in a subprocess (its fake
-#: process group cannot share a process with NCCL), at the lowest CPU
-#: priority, beside the card's phases; joined by phase 17 before its own
-#: runs.  Worker processes, its records and log, the records it must
-#: hold (10 archs x 4 cells x 2 meshes; long_500k applies to the two
-#: sub-quadratic archs), the seconds after the script's start by which
-#: it must have ended
-DRYRUN_JOBS = 6
+#: the dry run's sweep: a subprocess (its fake process group cannot
+#: share a process with NCCL) with a worker on every core, run alone at
+#: phase 17's start.  Its records and log, the records it must hold (10
+#: archs x 4 cells x 2 meshes; long_500k applies to the two
+#: sub-quadratic archs), the seconds it may take
 DRYRUN_DIR = ROOT / "build" / "dryrun"
 DRYRUN_LOG = ROOT / "build" / "dryrun.log"
 DRYRUN_OK, DRYRUN_SKIPPED = 64, 16
-DRYRUN_DEADLINE_S = 950
+DRYRUN_TIMEOUT_S = 480
 #: timed decode steps of each cell stepped on the card (after one
 #: untimed step)
 CELL_STEPS = 8
 
 
-def start_dryrun(started: float):
-    """Start the dry run's sweep; -> (process, script start, sweep
-    start).  The process leads its own session, so that ``stop_dryrun``
-    ends its workers with it."""
-    import atexit
+def run_dryrun():
+    """Run the sweep to its end (or DRYRUN_TIMEOUT_S); -> (exit code,
+    seconds waited).  The process leads its own session, which is ended
+    afterwards, so that no worker outlives it."""
     import shutil
+    import signal
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     DRYRUN_DIR.parent.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
     with open(DRYRUN_LOG, "w") as out:
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--mesh", "both", "--jobs", str(DRYRUN_JOBS), "--out",
-             str(DRYRUN_DIR)], cwd=ROOT, env=env, stdout=out,
-            stderr=subprocess.STDOUT, start_new_session=True,
-            preexec_fn=lambda: os.nice(19))
-    atexit.register(stop_dryrun, proc)
-    log(f"dry run started in the background (pid {proc.pid}, "
-        f"{DRYRUN_JOBS} workers at nice 19): {DRYRUN_LOG}")
-    return proc, started, time.perf_counter()
-
-
-def stop_dryrun(proc) -> None:
-    """End the sweep's session (the process and its workers) if it still
-    runs."""
-    import signal
-    if proc.poll() is None:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-
-
-def dryrun_sweep(sweep) -> dict:
-    """Phase 17's first part: wait for the sweep (until DRYRUN_DEADLINE_S
-    after the script's start), gate its counts, print its seconds, the
-    slowest cells, the roofline table with the H100's constants and
-    ``auto_accum`` of each train cell.  -> the summary."""
-    from repro_torch.launch import roofline
-    proc, started, t0 = sweep
-    wait0 = time.perf_counter()
+             "--mesh", "both", "--jobs", "0", "--out", str(DRYRUN_DIR)],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
     try:
-        proc.wait(timeout=max(1.0, DRYRUN_DEADLINE_S
-                              - (wait0 - started)))
+        proc.wait(timeout=DRYRUN_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        stop_dryrun(proc)
-        raise AssertionError(f"the dry run had not ended "
-                             f"{DRYRUN_DEADLINE_S} s after the start "
-                             f"(log: {DRYRUN_LOG})")
-    waited = time.perf_counter() - wait0
+        raise AssertionError(f"the dry run had not ended after "
+                             f"{DRYRUN_TIMEOUT_S} s (log: {DRYRUN_LOG})")
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    return proc.returncode, time.perf_counter() - t0
+
+
+def dryrun_sweep() -> dict:
+    """Phase 17's first part: run the sweep (``run_dryrun``), gate its
+    counts, print its seconds, the slowest cells, the roofline table with
+    the H100's constants and ``auto_accum`` of each train cell.  -> the
+    summary."""
+    from repro_torch.launch import roofline
+    code, waited = run_dryrun()
     with open(DRYRUN_DIR / "summary.json") as f:
         summary = json.load(f)
     s, cells = summary["summary"], summary["cells"]
     log(f"dry run: {s['ok']} ok, {s['skipped']} skipped, {s['failed']} "
         f"failed of {s['total']} (arch x cell x mesh), {s['seconds']} s on "
-        f"{s['jobs']} worker processes beside phases 3 to 16; phase 17 "
-        f"waited {waited:.1f} s for it")
+        f"{s['jobs']} worker processes, alone; {waited:.1f} s with the "
+        f"process's start")
     slow = sorted((c for c in cells if "seconds" in c),
                   key=lambda c: -c["seconds"])
     log("dry run, where the time went (s a cell, slowest first): " + ", ".join(
@@ -3828,10 +3816,10 @@ def dryrun_sweep(sweep) -> dict:
         f"{c['arch']}|{c['mesh_name']} {c['accum_steps']}"
         for c in cells if c.get("kind") == "train"))
     if (s["ok"], s["skipped"], s["failed"]) != (DRYRUN_OK, DRYRUN_SKIPPED,
-                                                0) or proc.returncode:
-        raise AssertionError(f"dry run: {s} (exit {proc.returncode}); "
-                             f"expected {DRYRUN_OK} ok, {DRYRUN_SKIPPED} "
-                             f"skipped, none failed")
+                                                0) or code:
+        raise AssertionError(f"dry run: {s} (exit {code}); expected "
+                             f"{DRYRUN_OK} ok, {DRYRUN_SKIPPED} skipped, "
+                             f"none failed")
     return s
 
 
@@ -3860,37 +3848,35 @@ def _cell_steps(step, params, cache, inputs):
     return statistics.median(times), logits
 
 
-def _cell_setup(arch, shape, mesh, card):
+def _cell_setup(arch, shape, mesh):
     """The cell's record on the one-card mesh (``lower_cell`` with
-    ``params_bf16``), its model on the card, its weights drawn from seed
-    0 in the record's dtypes, the cache of the cell's shape filled from a
-    generator with ``idx`` at its last position, and its tokens
-    (``trace_serve.cell_inputs``)."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import bf16_params, lower_cell
+    ``params_bf16``), and the cell on the card as
+    ``trace_serve.cell_setup`` sets it up over ``mesh``: its model,
+    weights from seed 0 in the record's dtypes, its decode step, the
+    cache of the cell's shape filled from a generator with ``idx`` at its
+    last position, and its tokens."""
+    from repro_torch.launch.dryrun import lower_cell
     from repro_torch.launch.shapes import SHAPES
-    from repro_torch.launch.trace_serve import cell_inputs
-    from repro_torch.models import Model
-    cfg, cell = get_config(arch), SHAPES[shape]
+    from repro_torch.launch.trace_serve import cell_setup
     rec = lower_cell(arch, shape, mesh, params_bf16=True)
-    model = Model(cfg, "cuda")
-    params = bf16_params(_family_weights(cfg, card))
+    t0 = time.perf_counter()
+    model, params, step, cache, tokens = cell_setup(arch, shape, mesh)
     _free_card()
-    cache, tokens = cell_inputs(model, cell)
-    return cfg, cell, rec, model, params, cache, tokens
+    log(f"{arch}: {model.n_params() / 1e6:.1f}M params, {model.cfg.n_layers} "
+        f"layers, weights and cache drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s; the step's make_shard_fn is an "
+        f"identity here (plain tensors, not DTensors)")
+    return model.cfg, SHAPES[shape], rec, params, step, cache, tokens
 
 
 def _decode_32k(mesh, card, bad, launched) -> dict:
     """qwen2-0.5b's decode_32k at the cell's shape: 128 rows over 32768
     keys, every row whole, 24 ragged launches a step."""
     import torch
-    from repro_torch.launch.dryrun import rules_for
     from repro_torch.launch.roofline import (HBM_BW, analyze_record,
                                              read_bytes)
-    from repro_torch.launch.sharding import make_shard_fn
-    from repro_torch.launch.steps import make_decode_step
-    cfg, cell, rec, model, params, cache, tokens = _cell_setup(
-        "qwen2-0.5b", "decode_32k", mesh, card)
+    cfg, cell, rec, params, step, cache, tokens = _cell_setup(
+        "qwen2-0.5b", "decode_32k", mesh)
     handed = _bytes(params) + _bytes(cache) + _bytes(tokens)
     args = rec["memory"]["argument_bytes"]
     log(f"qwen2-0.5b decode_32k: the step is handed {handed} B (params "
@@ -3901,8 +3887,6 @@ def _decode_32k(mesh, card, bad, launched) -> dict:
     if handed != args:
         bad.append(f"decode_32k: argument bytes {handed} on the card, "
                    f"{args} in the dry run")
-    rules, _ = rules_for(model)
-    step = make_decode_step(model, shard_fn=make_shard_fn(rules, mesh))
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     ms, logits = _cell_steps(step, params, cache, tokens)
@@ -3936,13 +3920,8 @@ def _long_500k(mesh, card, bad) -> dict:
     takes plain decode attention, as the reference's does)."""
     import torch
     from repro_torch.launch.roofline import HBM_BW, analyze_record
-    from repro_torch.launch.dryrun import rules_for
-    from repro_torch.launch.sharding import make_shard_fn
-    from repro_torch.launch.steps import make_decode_step
-    cfg, cell, rec, model, params, cache, tokens = _cell_setup(
-        "recurrentgemma-2b", "long_500k", mesh, card)
-    rules, _ = rules_for(model)
-    step = make_decode_step(model, shard_fn=make_shard_fn(rules, mesh))
+    cfg, cell, rec, params, step, cache, tokens = _cell_setup(
+        "recurrentgemma-2b", "long_500k", mesh)
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     ms, logits = _cell_steps(step, params, cache, tokens)
@@ -3967,11 +3946,12 @@ def _long_500k(mesh, card, bad) -> dict:
     return out
 
 
-def serve_cells(card: str, sweep) -> dict:
+def serve_cells(card: str) -> dict:
     """Phase 17: the dry run's sweep (``dryrun_sweep``), then two cells
     stepped at their full shape on the card over a (1, 1) ("data",
     "model") mesh of a one-process NCCL group, each step built by
-    ``make_decode_step`` with ``make_shard_fn`` installed: qwen2-0.5b
+    ``make_decode_step`` with ``make_shard_fn`` installed (an identity on
+    these plain tensors): qwen2-0.5b
     ``decode_32k`` and recurrentgemma-2b ``long_500k``; then a case for
     each (kernel, dtype, shape) key they launched, held against its plain
     version (phase 16's mechanism).  -> numbers and cases."""
@@ -3979,7 +3959,7 @@ def serve_cells(card: str, sweep) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
-    summary = dryrun_sweep(sweep)
+    summary = dryrun_sweep()
     _free_card()
     props = torch.cuda.get_device_properties(0)
     from repro_torch.launch.roofline import HBM_BYTES
@@ -4057,7 +4037,6 @@ def main() -> int:
     if failed:
         log(f"FAILED phases: {failed}")
         return 1
-    sweep = start_dryrun(started)
     phase("kernels vs plain versions", check_kernels)
     phase("rglru_scan vs plain version", check_rglru)
     phase("flash_attention vs plain version", check_flash)
@@ -4117,7 +4096,7 @@ def main() -> int:
                         served[3], served[1], card)
     cells = phase("the dry run (every arch x cell x mesh) and two cells "
                   "on the card: qwen2-0.5b decode_32k, recurrentgemma-2b "
-                  "long_500k", serve_cells, card, sweep)
+                  "long_500k", serve_cells, card)
     if failed or kernels is None or rg_kernel is None or flash is None \
             or surface is None or fleet is None or planner is None \
             or family is None or scan_grad is None or trained is None \

@@ -7,9 +7,12 @@ signatures (``repro.kernels.flash_attention.ops``, without
 launches its hand-written CUDA kernel on the current stream, or raises:
 there is no fallback.  The kernels are forward only: under grad mode a
 CUDA input that requires grad raises.  For a CPU tensor each runs its
-plain PyTorch version (``ref.py``), and so for a meta tensor (shapes
-with no data: the dry run), which holds nothing a kernel could read.  Each wrapper counts its kernel launches in
-``LAUNCHES``: one per wrapper call, though a decode call is two CUDA
+plain PyTorch version (``ref.py``).  For a meta tensor (shapes with no
+data: the dry run) each calls its kernel's meta operator (``_meta_op``):
+the output the kernel writes, with no data, and the kernel's FLOPs by
+formula, so that a counting dispatch mode sees what the card holds and
+not the plain version's (Sq, Sk) scores and fp32 copies.  Each wrapper
+counts its kernel launches in ``LAUNCHES``: one per wrapper call, though a decode call is two CUDA
 launches (the split pass and the combine pass); ``SHAPE_LAUNCHES``
 counts the same launches by the signature each ran at.
 """
@@ -26,7 +29,7 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      ragged_decode_ref)
 
 #: kernel launches since the last ``reset_launch_counts()``; plain-version
-#: calls on CPU and meta tensors do not count
+#: calls on CPU tensors and meta-operator calls do not count
 LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
 #: the same launches keyed by (kernel, dtype, shape): the shape is (B, Sq,
 #: Sk, Hq, Hkv, dh, causal, window, softcap) for ``flash_attention``, (B,
@@ -35,8 +38,6 @@ LAUNCHES = {"ragged_decode": 0, "paged_decode": 0, "flash_attention": 0}
 SHAPE_LAUNCHES: Dict[Tuple[str, str, tuple], int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: devices whose tensors take the plain version
-_PLAIN = ("cpu", "meta")
 _MAX_DH = 256         # the largest head_dim of every attention kernel
 #: keys of a row that one split block of a decode kernel owns
 DECODE_CHUNK = 128
@@ -75,11 +76,62 @@ def _refuse_grad(name, *tensors) -> None:
                            f"plain attention)")
 
 
+def attention_flops(b: int, hq: int, sq: int, sk: int, dh: int) -> int:
+    """Matmul FLOPs of attention over the whole (Sq, Sk) square: QK^T and
+    PV, 2 * dh each per (query head, query, key).  Masked keys count too,
+    as in torch's SDPA formula and the plain versions' products; a causal
+    prefill kernel skips the blocks above the diagonal, so it runs about
+    half of them."""
+    return 4 * b * hq * sq * sk * dh
+
+
+#: the meta operators' library, defined by the first ``_meta_op`` call
+_META_LIB = []
+
+
+def _meta_op(name: str):
+    """The kernel ``name`` as an operator of the ``repro_torch_kernels``
+    namespace for meta tensors: its Meta kernel returns the output the
+    card's kernel writes (contiguous, q's shape and dtype), and its FLOP
+    formula (``attention_flops``) is registered with
+    ``torch.utils.flop_counter``.  A counting dispatch mode
+    (``launch.op_analysis.OpCounter``, ``FlopCounterMode``) sees one op
+    that reads its inputs and writes its output.  Defined at first use,
+    never at import."""
+    if not _META_LIB:
+        from torch.utils.flop_counter import register_flop_formula
+        lib = torch.library.Library("repro_torch_kernels", "DEF")
+        lib.define("flash_attention(Tensor q, Tensor k, Tensor v, "
+                   "bool causal, int window, float softcap) -> Tensor")
+        lib.define("ragged_decode(Tensor q, Tensor k_cache, Tensor v_cache, "
+                   "Tensor cur_index, float softcap) -> Tensor")
+        lib.define("paged_decode(Tensor q, Tensor k_pages, Tensor v_pages, "
+                   "Tensor page_table, Tensor cur_index, float softcap) "
+                   "-> Tensor")
+        for op in ("flash_attention", "ragged_decode", "paged_decode"):
+            lib.impl(op, lambda q, *_: q.new_empty(q.shape), "Meta")
+        ns = torch.ops.repro_torch_kernels
+
+        @register_flop_formula(ns.flash_attention)
+        def _(q, k, v, *_, out_shape=None):
+            return attention_flops(q[0], q[2], q[1], k[1], q[3])
+
+        @register_flop_formula(ns.ragged_decode)
+        def _(q, k, *_, out_shape=None):
+            return attention_flops(q[0], q[2], 1, k[1], q[3])
+
+        @register_flop_formula(ns.paged_decode)
+        def _(q, k, v, table, *_, out_shape=None):
+            return attention_flops(q[0], q[2], 1, table[1] * k[1], q[3])
+        _META_LIB.append(lib)
+    return getattr(torch.ops.repro_torch_kernels, name)
+
+
 def _check_common(q, k, v, cur_index, name):
     if q.device.type != "cuda":
         raise RuntimeError(f"{name}: tensors on {q.device} have no kernel; "
-                           f"the plain version serves only CPU and meta "
-                           f"tensors")
+                           f"the plain version serves only CPU tensors, the "
+                           f"meta operator meta tensors")
     _refuse_grad(name, q, k, v)
     for t, what in ((k, "k"), (v, "v"), (cur_index, "cur_index")):
         if t.device != q.device:
@@ -113,16 +165,33 @@ def _check_common(q, k, v, cur_index, name):
     return b, hq // hkv, hkv, dh
 
 
+def _decode_workspace(q, capacity):
+    """The fp32 workspace of a decode call's split partials."""
+    b, _, hq, dh = q.shape
+    n_split = decode_splits(capacity)[1]
+    return torch.empty(b * hq * n_split * (dh + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _decode_meta(name, q, *args, capacity, softcap):
+    """A decode wrapper's call on meta tensors: its workspace, then its
+    meta operator (``_meta_op``)."""
+    _refuse_grad(name, q, *args[:2])
+    ws = _decode_workspace(q, capacity)
+    out = _meta_op(name)(q, *args, float(softcap))
+    del ws
+    return out
+
+
 def _decode_launch_args(q, k, v, capacity):
     """The arguments every decode launch shares: the output, the fp32
-    workspace of the split partials, k's and v's strides over their first
+    workspace of the split partials (``_decode_workspace``), k's and v's strides over their first
     three dimensions (0 for a dimension of size 1, which is never stepped
     over), the chunk, the split count and whether q, K and V allow
     16-byte loads (then bf16 with dh <= 64 runs on the tensor cores)."""
-    b, _, hq, dh = q.shape
+    dh = q.shape[3]
     chunk, n_split = decode_splits(capacity)
-    ws = torch.empty(b * hq * n_split * (dh + 2), dtype=torch.float32,
-                     device=q.device)
+    ws = _decode_workspace(q, capacity)
     strides = [s if n > 1 else 0 for t in (k, v)
                for n, s in zip(t.shape[:3], t.stride()[:3])]
     vec = 16 // q.element_size()
@@ -138,9 +207,12 @@ def flash_decode_attention(q, k_cache, v_cache, cur_index, *,
     q: (B, 1, Hq, dh); k_cache/v_cache: (B, Smax, Hkv, dh); cur_index:
     (B,) int32 — row b attends to positions [0, cur_index[b]].
     -> (B, 1, Hq, dh) in q's dtype."""
-    if q.device.type in _PLAIN:
+    if q.device.type == "cpu":
         return ragged_decode_ref(q, k_cache, v_cache, cur_index,
                                  softcap=softcap)
+    if q.device.type == "meta":
+        return _decode_meta("ragged_decode", q, k_cache, v_cache, cur_index,
+                            capacity=k_cache.shape[1], softcap=softcap)
     b, g, hkv, dh = _check_common(q, k_cache, v_cache, cur_index,
                                   "ragged_decode")
     lib = build.load("ragged_decode")
@@ -168,9 +240,13 @@ def paged_flash_decode_attention(q, k_pages, v_pages, page_table,
     pages; page_table: (B, max_pages) int32 — logical page j of row b is
     physical page ``page_table[b, j]`` (sentinel N = unmapped, clipped to
     N-1); cur_index: (B,) int32.  -> (B, 1, Hq, dh)."""
-    if q.device.type in _PLAIN:
+    if q.device.type == "cpu":
         return paged_decode_ref(q, k_pages, v_pages, page_table, cur_index,
                                 softcap=softcap)
+    if q.device.type == "meta":
+        return _decode_meta("paged_decode", q, k_pages, v_pages, page_table,
+                            cur_index, capacity=page_table.shape[1]
+                            * k_pages.shape[1], softcap=softcap)
     b, g, hkv, dh = _check_common(q, k_pages, v_pages, cur_index,
                                   "paged_decode")
     if page_table.device != q.device or page_table.dtype != torch.int32 \
@@ -210,13 +286,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     only: on the card, under grad mode, an input that requires grad
     raises."""
     del q_block, kv_block
-    if q.device.type in _PLAIN:
+    if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
+    if q.device.type == "meta":
+        _refuse_grad("flash_attention", q, k, v)
+        return _meta_op("flash_attention")(q, k, v, bool(causal),
+                                           int(window), float(softcap))
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: tensors on {q.device} have no "
-                           f"kernel; the plain version serves only CPU and "
-                           f"meta tensors")
+                           f"kernel; the plain version serves only CPU "
+                           f"tensors, the meta operator meta tensors")
     for t, what in ((k, "k"), (v, "v")):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {what} on {t.device}, q on "

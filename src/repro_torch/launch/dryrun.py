@@ -4,7 +4,8 @@ meta device (the port of ``repro.launch.dryrun``).
 The reference lowers and compiles each cell on a forced 512-device host
 mesh.  The port has no compiler to ask, so ``lower_cell`` runs the
 cell's step, built by the port's own step builders with
-``make_shard_fn`` installed, on meta tensors (shapes, no storage) under
+``make_shard_fn`` installed (an identity on these plain tensors), on meta
+tensors (shapes, no storage) under
 an op counter (``launch/op_analysis.py``), over a ``DeviceMesh`` of the
 production shape.  The mesh's ranks belong to an in-process ``fake``
 process group (``torch.testing._internal.distributed.fake_pg``), which
@@ -199,7 +200,10 @@ def lower_cell(arch: str, shape_name: str, mesh, rules_preset: str = "auto",
                params_bf16: bool = False) -> dict:
     """-> the record of one cell (module docstring): its step built by
     ``launch.steps`` with ``make_shard_fn(rules, mesh)``, run on meta
-    tensors of one card's rows under an ``OpCounter``."""
+    tensors of one card's rows under an ``OpCounter``.  Those tensors are
+    plain, not DTensors, so the installed ``shard_fn`` returns each as it
+    is: it shapes neither the counts nor the step, and the sharding enters
+    the record only through the specs (``argument_bytes``, rows run)."""
     cfg = get_config(arch)
     cell = SHAPES[shape_name]
     model = Model(cfg, device="meta")
@@ -241,9 +245,10 @@ def lower_cell(arch: str, shape_name: str, mesh, rules_preset: str = "auto",
         cache_sds = cache_specs(model, cell, mesh)
         micro = _rows(next(iter(batch_sds.values())))
         step = make_prefill_step(model, shard_fn=shard_fn)
+        batch = _run_tensors(batch_sds, micro)
+        cache = _cache_for_run(cache_sds, micro)
         with counter:
-            logits, _ = step(params, _run_tensors(batch_sds, micro),
-                             _cache_for_run(cache_sds, micro))
+            logits, _ = step(params, batch, cache)
         args_bytes = (_local_bytes(params_sds) + _local_bytes(batch_sds)
                       + _local_bytes(cache_sds))
         alias = _local_bytes(cache_sds)
@@ -253,9 +258,10 @@ def lower_cell(arch: str, shape_name: str, mesh, rules_preset: str = "auto",
         tok_sds = next(iter(decode_token_specs(cfg, cell, mesh).values()))
         micro = _rows(tok_sds)
         step = make_decode_step(model, shard_fn=shard_fn)
+        cache = _cache_for_run(cache_sds, micro)
+        tokens = _run_tensors(tok_sds, micro)
         with counter:
-            logits, _ = step(params, _cache_for_run(cache_sds, micro),
-                             _run_tensors(tok_sds, micro))
+            logits, _ = step(params, cache, tokens)
         args_bytes = (_local_bytes(params_sds) + _local_bytes(cache_sds)
                       + tok_sds.local_bytes)
         alias = _local_bytes(cache_sds)
@@ -451,14 +457,15 @@ def main(argv=None):
                     choices=["auto", "tp", "fsdp_tp"])
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--jobs", type=int, default=1,
-                    help="worker processes (0: one per CPU core)")
+                    help="worker processes (0: one per CPU core this "
+                         "process may run on)")
     args = ap.parse_args(argv)
 
     archs = list(ARCHS) if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) \
         else [args.shape]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
-    jobs = args.jobs or os.cpu_count() or 1
+    jobs = args.jobs or len(os.sched_getaffinity(0))
     results = run_cells(archs, shapes, meshes, args.out, args.rules,
                         jobs=jobs)
     if any(r.get("status") == "failed" for r in results):

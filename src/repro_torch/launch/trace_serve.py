@@ -29,11 +29,12 @@ tracing costs time per kernel, which the graph's short gaps show.  The
 run continues unprofiled to the end.
 
 ``--cell ARCH:CELL`` traces a decode cell of ``launch.shapes`` instead,
-as ``chip_smoke.py`` phase 17 steps it: ``Model.decode_step`` (built by
-``make_decode_step``) at the cell's batch over a cache of the cell's
-length filled from a generator, ``idx`` at its last position, weights in
-the dry run's ``params_bf16`` dtypes; one untimed step, a profiled
-window of 4 steps, then the same 4 steps timed unprofiled.
+set up by ``cell_setup``, which ``chip_smoke.py`` phase 17 also uses:
+``Model.decode_step`` (built by ``make_decode_step``) at the cell's
+batch over a cache of the cell's length filled from a generator, ``idx``
+at its last position, weights in the dry run's ``params_bf16`` dtypes;
+one untimed step, a profiled window of 4 steps, then the same 4 steps
+timed unprofiled.
 Needs a CUDA device; the numbers are the card's, with its name and power
 limit.
 """
@@ -50,10 +51,12 @@ import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.plan import EndpointPlan
-from repro_torch.launch.dryrun import bf16_params
+from repro_torch.launch.dryrun import bf16_params, rules_for
 from repro_torch.launch.shapes import SHAPES
+from repro_torch.launch.sharding import make_shard_fn
 from repro_torch.launch.steps import make_decode_step
 from repro_torch.models import Model
+from repro_torch.models.layers import no_sharding
 from repro_torch.models.params import tree_leaves
 from repro_torch.serve.engine import ContinuousEngine, Request
 
@@ -198,18 +201,32 @@ def cell_inputs(model: Model, cell, seed: int = 1):
     return cache, tokens
 
 
-def trace_cell(arch: str, cell_name: str, steps: int = DECODE_CALLS,
-               top: int = TOP) -> list:
-    """Profile ``steps`` decode steps of a decode cell (module
-    docstring), then time as many unprofiled; -> the two windows."""
+def cell_setup(arch: str, cell_name: str, mesh=None):
+    """A decode cell of ``launch.shapes`` on the card: the model at full
+    width and depth, weights drawn from ``torch.Generator`` seed 0 in the
+    dry run's ``params_bf16`` dtypes, the step of ``make_decode_step``
+    (with ``make_shard_fn`` of the cell's rules over ``mesh`` when one is
+    given, else the identity hook: the same step on plain tensors), and
+    ``cell_inputs``.  -> (model, params, step, cache, tokens)."""
     cell = SHAPES[cell_name]
     if cell.kind != "decode":
-        raise ValueError(f"{cell_name}: --cell traces decode cells")
+        raise ValueError(f"{cell_name}: a decode cell is stepped here")
     model = Model(get_config(arch), "cuda")
     params = bf16_params(model.init(
         torch.Generator(device="cuda").manual_seed(0)))
+    shard_fn = no_sharding if mesh is None else make_shard_fn(
+        rules_for(model)[0], mesh)
+    step = make_decode_step(model, shard_fn=shard_fn)
     cache, tokens = cell_inputs(model, cell)
-    step = make_decode_step(model)
+    return model, params, step, cache, tokens
+
+
+def trace_cell(arch: str, cell_name: str, steps: int = DECODE_CALLS,
+               top: int = TOP) -> list:
+    """Profile ``steps`` decode steps of a decode cell (``cell_setup``),
+    then time as many unprofiled; -> the two windows."""
+    cell = SHAPES[cell_name]
+    _, params, step, cache, tokens = cell_setup(arch, cell_name)
     step(params, cache, tokens)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,

@@ -1,8 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor the JAX package, entry points refuse to carry on without
 a card unless asked for the CPU (or the meta device, by name), and the
-kernel wrappers route only CPU and meta tensors to their plain
-versions."""
+kernel wrappers route only CPU tensors to their plain versions and meta
+tensors to shape-only operators."""
 
 import ast
 import os
@@ -96,8 +96,9 @@ def test_importing_the_dry_run_joins_no_process_group():
 
 
 def test_wrappers_take_the_plain_versions_for_meta_tensors():
-    """A meta tensor (the dry run) goes where a CPU tensor goes: the
-    plain version, no launch, the kernel's output shape and dtype."""
+    """A meta tensor (the dry run) launches nothing: the attention
+    wrappers call their meta operators and the scan its plain version,
+    each giving the kernel's output shape and dtype."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.rglru import ops as rglru_ops
     meta = dict(device="meta")
@@ -118,6 +119,47 @@ def test_wrappers_take_the_plain_versions_for_meta_tensors():
     assert rglru_ops.rglru_scan(a, a).is_meta
     assert not any(ops.LAUNCHES.values()) and not ops.SHAPE_LAUNCHES
     assert not any(rglru_ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("case", ["prefill", "decode", "paged"])
+def test_meta_operators_count_the_plain_flops_and_hold_no_scores(case):
+    """On meta tensors an attention wrapper counts the FLOPs its plain
+    version's products count, and holds only what the card's kernel
+    holds: its output (and a decode call's split workspace), never the
+    plain version's scores or fp32 copies."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.launch.op_analysis import OpCounter
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    b, hq, hkv, dh = 2, 6, 2, 16
+    cur = torch.empty((b,), dtype=torch.int32, device="meta")
+    if case == "prefill":
+        q = torch.empty((b, 64, hq, dh), **meta)
+        k = torch.empty((b, 64, hkv, dh), **meta)
+        args = (q, k, k)
+        wrapper, plain, held = ops.flash_attention, ref.flash_attention_ref, 0
+    else:
+        q = torch.empty((b, 1, hq, dh), **meta)
+        if case == "decode":
+            k = torch.empty((b, 256, hkv, dh), **meta)
+            args = (q, k, k, cur)
+            wrapper, plain = ops.flash_decode_attention, ref.ragged_decode_ref
+            capacity = 256
+        else:
+            k = torch.empty((8, 32, hkv, dh), **meta)
+            table = torch.empty((b, 8), dtype=torch.int32, device="meta")
+            args = (q, k, k, table, cur)
+            wrapper, plain = (ops.paged_flash_decode_attention,
+                              ref.paged_decode_ref)
+            capacity = 8 * 32
+        held = b * hq * ops.decode_splits(capacity)[1] * (dh + 2) * 4
+    with OpCounter() as kernel:
+        out = wrapper(*args)
+    with OpCounter() as reference:
+        plain(*args)
+    assert kernel.flops == reference.flops == ops.attention_flops(
+        b, hq, q.shape[1], capacity if case != "prefill" else 64, dh)
+    assert kernel.peak_bytes == held + out.numel() * out.element_size()
+    assert reference.peak_bytes > 4 * kernel.peak_bytes
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
