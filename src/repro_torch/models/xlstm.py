@@ -284,20 +284,27 @@ def _slstm_scan(p, x, state):
     b, t, d = x.shape
     nh = p["r_z"].shape[0]
     dh = d // nh
-    pre = {g: x @ p[f"w_{g}"].float() + p[f"b_{g}"].float()
-           for g in ("z", "i", "f", "o")}
+    gates = ("z", "i", "f", "o")
+    pre = {g: x @ p[f"w_{g}"].float() + p[f"b_{g}"].float() for g in gates}
+    # the four gates' recurrent weights side by side, (H, dh, 4 dh): one
+    # product a position instead of four
+    r_all = torch.cat([p[f"r_{g}"].float() for g in gates], dim=-1)
 
-    def recur(h_prev, g):
-        return torch.einsum("bhk,hkl->bhl", h_prev.reshape(b, nh, dh),
-                            p[f"r_{g}"].float()).reshape(b, d)
+    def gate(rec, s, i):
+        """Gate ``gates[i]``'s pre-activation at position ``s``, (B, d)."""
+        return (pre[gates[i]][:, s].reshape(b, nh, dh)
+                + rec[:, :, i]).reshape(b, d)
 
     c, n, h, m = state
     hs = []
     for s in range(t):
-        zt = torch.tanh(pre["z"][:, s] + recur(h, "z"))
-        it = pre["i"][:, s] + recur(h, "i")
-        ft = pre["f"][:, s] + recur(h, "f")
-        ot = torch.sigmoid(pre["o"][:, s] + recur(h, "o"))
+        # (H, B, dh) @ (H, dh, 4 dh) -> (B, H, 4, dh)
+        rec = torch.bmm(h.reshape(b, nh, dh).transpose(0, 1), r_all
+                        ).transpose(0, 1).reshape(b, nh, 4, dh)
+        zt = torch.tanh(gate(rec, s, 0))
+        it = gate(rec, s, 1)
+        ft = gate(rec, s, 2)
+        ot = torch.sigmoid(gate(rec, s, 3))
         it_h = it.reshape(b, nh, dh)
         lf_h = F.logsigmoid(ft.reshape(b, nh, dh))
         # stabiliser per head (max over the head's channels)
