@@ -12,9 +12,10 @@ data: the dry run) each calls its kernel's meta operator (``_meta_op``):
 the output the kernel writes, with no data, and the kernel's FLOPs by
 formula, so that a counting dispatch mode sees what the card holds and
 not the plain version's (Sq, Sk) scores and fp32 copies.  Each wrapper
-counts its kernel launches in ``LAUNCHES``: one per wrapper call, though a decode call is two CUDA
-launches (the split pass and the combine pass); ``SHAPE_LAUNCHES``
-counts the same launches by the signature each ran at.
+counts its kernel launches in ``LAUNCHES``: one per wrapper call, though
+a decode call is two CUDA launches (the split pass and the combine
+pass); ``SHAPE_LAUNCHES`` counts the same launches by the signature each
+ran at.
 """
 
 from __future__ import annotations
@@ -185,10 +186,11 @@ def _decode_meta(name, q, *args, capacity, softcap):
 
 def _decode_launch_args(q, k, v, capacity):
     """The arguments every decode launch shares: the output, the fp32
-    workspace of the split partials (``_decode_workspace``), k's and v's strides over their first
-    three dimensions (0 for a dimension of size 1, which is never stepped
-    over), the chunk, the split count and whether q, K and V allow
-    16-byte loads (then bf16 with dh <= 64 runs on the tensor cores)."""
+    workspace of the split partials (``_decode_workspace``), k's and v's
+    strides over their first three dimensions (0 for a dimension of size
+    1, which is never stepped over), the chunk, the split count and
+    whether q, K and V allow 16-byte loads (then bf16 with dh <= 64 runs
+    on the tensor cores)."""
     dh = q.shape[3]
     chunk, n_split = decode_splits(capacity)
     ws = _decode_workspace(q, capacity)

@@ -280,43 +280,41 @@ def slstm_specs(cfg: ArchConfig):
 
 def _slstm_scan(p, x, state):
     """x: (B, T, d) fp32.  state: (c, n, h, m), (B, d) fp32 each but m
-    (B, H).  -> hs (B, T, d) fp32 and the final state."""
+    (B, H).  -> hs (B, T, d) fp32 and the final state.  The loop keeps
+    c, n and h as (B, H, dh) and the four gates side by side, so that a
+    position dispatches few ops (a meta run counts every one)."""
     b, t, d = x.shape
     nh = p["r_z"].shape[0]
     dh = d // nh
     gates = ("z", "i", "f", "o")
-    pre = {g: x @ p[f"w_{g}"].float() + p[f"b_{g}"].float() for g in gates}
+    # every position's input pre-activations, (B, T, 4, H, dh)
+    pre = torch.stack([x @ p[f"w_{g}"].float() + p[f"b_{g}"].float()
+                       for g in gates], dim=2).reshape(b, t, 4, nh, dh)
     # the four gates' recurrent weights side by side, (H, dh, 4 dh): one
-    # product a position instead of four
+    # product a position for all four
     r_all = torch.cat([p[f"r_{g}"].float() for g in gates], dim=-1)
-
-    def gate(rec, s, i):
-        """Gate ``gates[i]``'s pre-activation at position ``s``, (B, d)."""
-        return (pre[gates[i]][:, s].reshape(b, nh, dh)
-                + rec[:, :, i]).reshape(b, d)
-
-    c, n, h, m = state
+    c, n, h = (v.reshape(b, nh, dh) for v in state[:3])
+    m = state[3]
     hs = []
     for s in range(t):
-        # (H, B, dh) @ (H, dh, 4 dh) -> (B, H, 4, dh)
-        rec = torch.bmm(h.reshape(b, nh, dh).transpose(0, 1), r_all
-                        ).transpose(0, 1).reshape(b, nh, 4, dh)
-        zt = torch.tanh(gate(rec, s, 0))
-        it = gate(rec, s, 1)
-        ft = gate(rec, s, 2)
-        ot = torch.sigmoid(gate(rec, s, 3))
-        it_h = it.reshape(b, nh, dh)
-        lf_h = F.logsigmoid(ft.reshape(b, nh, dh))
+        # (H, B, dh) @ (H, dh, 4 dh) -> (B, 4, H, dh)
+        rec = torch.bmm(h.transpose(0, 1), r_all).view(nh, b, 4, dh)
+        g = pre[:, s] + rec.permute(1, 2, 0, 3)
+        zt = torch.tanh(g[:, 0])
+        it_h = g[:, 1]
+        lf_h = F.logsigmoid(g[:, 2])
+        ot = torch.sigmoid(g[:, 3])
         # stabiliser per head (max over the head's channels)
         m_new = torch.maximum(lf_h.max(-1).values + m, it_h.max(-1).values)
-        i_p = torch.exp(it_h - m_new[..., None]).reshape(b, d)
-        f_p = torch.exp(lf_h + (m - m_new)[..., None]).reshape(b, d)
+        i_p = torch.exp(it_h - m_new[..., None])
+        f_p = torch.exp(lf_h + (m - m_new)[..., None])
         c = f_p * c + i_p * zt
         n = f_p * n + i_p
         h = ot * c / n.clamp_min(1e-6)
         m = m_new
         hs.append(h)
-    return torch.stack(hs, dim=1), (c, n, h, m)
+    return torch.stack(hs, dim=1).reshape(b, t, d), (
+        c.reshape(b, d), n.reshape(b, d), h.reshape(b, d), m)
 
 
 def apply_slstm_block(p, x, cfg: ArchConfig, cache=None, step_active=None):
