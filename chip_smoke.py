@@ -45,7 +45,11 @@ Phases (any failure exits non-zero, without the final result line):
    equal layers x executed decode steps of its run and the flash
    kernel's layers x prefills (on the card, here and in every later
    serving phase, each fused horizon replays the engine's CUDA graph of
-   its length, which counts the launches it holds); then, contiguous, 8
+   its length and each bucketed admission round the engine's graph of
+   its bucket, and a replay counts the launches its capture held; the
+   engine must hold one admission graph per bucket used, each captured
+   at its bucket's first round, whose seconds and pool bytes are
+   printed beside the later rounds'); then, contiguous, 8
    of the prompts with budgets of 1 to 64 tokens on one ordered stream,
    served with the engine's cut of each horizon at the last live step
    and without it (every horizon runs K steps): the same tokens, and
@@ -62,7 +66,17 @@ Phases (any failure exits non-zero, without the final result line):
    agree, every one, the decode kernel launch layers x steps launched in
    both modes, each engine capture 1 to K graphs and a second run on it
    capture none; decode tok/s, max_memory_allocated and the graph count
-   of both modes are printed;
+   of both modes are printed.  Then bucketed admission as CUDA graphs
+   (one per prefill bucket) against the eager body (the engine's
+   admission runner swapped for the round launched op by op), in bf16
+   on six paths, contiguous and paged each: qwen2-0.5b's short prompts
+   (phase 4's runs), its long prompts twice over (16 requests, so that
+   a second round of 8 replays the first's graph) and
+   granite-moe-1b-a400m at full width and depth on phase 14's prompts;
+   the tokens must agree, every one, the launches of both modes must be
+   what their prefills and horizons account for, and each graph run
+   must hold one admission graph per bucket used; each round's seconds
+   are printed;
 7. the qwen2-0.5b smoke config at fp32 served on the card (kernels,
    horizon graphs) and on the CPU (plain versions, chunked attention for
    the round with a 1100-token prompt): the tokens must agree;
@@ -795,7 +809,8 @@ def _timed_steps(eng):
 
 def serve_once(cfg, params, prompts, pages: bool, device: str,
                max_new=None, capped: bool = True, one_stream: bool = False,
-               max_len: int = SMAX, eager: bool = False, horizons=None):
+               max_len: int = SMAX, eager: bool = False, horizons=None,
+               eager_admission: bool = False, rounds=None):
     """Serve ``prompts`` through ``connect``, each asking for ``max_new[i]``
     tokens (default MAX_NEW), all at once or (``one_stream``) in order on
     one stream, each released when its predecessor retires; -> (outputs
@@ -804,10 +819,17 @@ def serve_once(cfg, params, prompts, pages: bool, device: str,
     so steps after the last live slot are launched (and write nothing)
     instead of cut by the engine.  ``eager`` swaps the engine's horizon
     runner (on the card, its CUDA graphs) for the eager body,
-    ``Model.decode_horizon`` launched op by op on the same buffers.
-    ``horizons``, a list, receives the steps of each horizon launched."""
+    ``Model.decode_horizon`` launched op by op on the same buffers;
+    ``eager_admission`` swaps its admission runner (on the card, one CUDA
+    graph per prefill bucket) for the eager body, the round launched op
+    by op on the same buffers.  ``horizons``, a list, receives the steps
+    of each horizon launched; ``rounds``, a list, a dict per bucketed
+    admission round: its bucket, host seconds (the card synchronized
+    before and after), whether it captured its bucket's graph and, if
+    so, the bytes the engine's graph pool grew by."""
     import torch
     from repro_torch.serve import connect
+    from repro_torch.serve.engine import pool_bytes
     max_new = max_new or [MAX_NEW] * len(prompts)
     client = connect(cfg, _plan(pages, max_len), params=params,
                      device=device)
@@ -828,6 +850,39 @@ def serve_once(cfg, params, prompts, pages: bool, device: str,
         return run_horizon(n)
 
     eng._run_horizon = counted_horizon
+    run_admission = eng._run_admission
+    if eager_admission:
+        def run_admission(bucket):
+            return eng._admissions.body(bucket)
+
+    def timed_admission(bucket):
+        if rounds is None:
+            return run_admission(bucket)
+        on_card = eng.device.type == "cuda"
+        capture = on_card and not eager_admission and \
+            bucket not in eng._admissions.graphs
+        if on_card:
+            torch.cuda.synchronize()
+        if capture:
+            # a capture empties the allocator's cache, which frees the pool
+            # memory of dead graphs: free it first, so that the difference
+            # is what this capture adds
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+        pool = (pool_bytes([eng.group]) or 0) if capture else 0
+        t = time.perf_counter()
+        first = run_admission(bucket)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        after = pool_bytes([eng.group]) if capture else None
+        rounds.append({"bucket": bucket, "s": seconds, "capture": capture,
+                       "pool_bytes": None if after is None
+                       else after - pool})
+        return first
+
+    eng._run_admission = timed_admission
     decode_s = _timed_steps(eng)
     reset_counts()
     t0 = time.perf_counter()
@@ -838,8 +893,41 @@ def serve_once(cfg, params, prompts, pages: bool, device: str,
     counts = read_counts()
     del eng.step      # the wrappers refer back to the engine: free them now
     del eng._run_horizon
+    del eng._run_admission
     eng.__dict__.pop("_horizon_steps", None)
     return [out[r] for r in rids], eng, counts, decode_s[0], wall
+
+
+def _mean_s(rounds, capture: bool) -> float:
+    """Mean seconds of the rounds that did (not) capture; nan if none."""
+    s = [r["s"] for r in rounds if r["capture"] == capture]
+    return sum(s) / len(s) if s else float("nan")
+
+
+def admission_rounds(name, eng, rounds, bad, eager: bool = False) -> str:
+    """A line on a run's bucketed admission rounds (``serve_once``'s
+    ``rounds``), gating the engine's admission graphs: one per bucket
+    used on the card (none for the eager body), each bucket captured at
+    its first round only."""
+    buckets = sorted({r["bucket"] for r in rounds})
+    graphs = eng.admission_graph_count()
+    captured = [r["bucket"] for r in rounds if r["capture"]]
+    expect = [] if eager else buckets
+    if graphs != len(expect) or sorted(captured) != expect:
+        bad.append(f"{name}: {graphs} admission graphs, captures in "
+                   f"{captured}, for buckets {buckets}")
+    later = [r["s"] for r in rounds if not r["capture"]]
+    first = ", ".join(
+        f"{r['bucket']}: {r['s']:.4f} s"
+        + (f" (pool +{r['pool_bytes'] / 2 ** 20:.1f} MiB)"
+           if r["pool_bytes"] is not None else "")
+        for r in rounds if r["capture"])
+    return (f"admission {'eager body' if eager else 'graphs'}: "
+            f"{len(rounds)} rounds in buckets {buckets}, {graphs} graphs"
+            + (f"; capture rounds {first}" if first else "")
+            + (f"; {'' if eager else 'replay '}rounds {len(later)}, "
+               f"{sum(later):.4f} s, mean {sum(later) / len(later):.4f} s"
+               if later else ""))
 
 
 def serve_full_width(card: str):
@@ -857,8 +945,10 @@ def serve_full_width(card: str):
     for pages in (False, True):
         name = "paged_decode" if pages else "ragged_decode"
         fresh_peak()
+        rounds = []
         outs, eng, counts, dec_s, wall = serve_once(cfg, params, prompts,
-                                                    pages, "cuda")
+                                                    pages, "cuda",
+                                                    rounds=rounds)
         steps = eng.stats["decode_steps"]
         expect = {k: 0 for k in counts}
         expect[name] = cfg.n_layers * steps
@@ -878,13 +968,14 @@ def serve_full_width(card: str):
             f"{dec_s:.3f}s, batch {N_SLOTS}, horizon {HORIZON}); "
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
             f"on {card}")
+        log("  " + admission_rounds(f"serve {layout}", eng, rounds, bad))
         if not ok_tokens:
             bad.append(f"{layout}: a request came back without its "
                        f"{MAX_NEW} tokens")
         if counts != expect:
             bad.append(f"{layout}: launches {counts} != {expect}")
         runs[name] = {"outs": outs, "launches": counts[name],
-                      "tok_s": tok / dec_s}
+                      "tok_s": tok / dec_s, "rounds": rounds}
         del eng
     a, c = runs["ragged_decode"]["outs"], runs["paged_decode"]["outs"]
     same = sum(x == y for p, q in zip(a, c) for x, y in zip(p, q))
@@ -944,6 +1035,13 @@ def horizon_cap(cfg, params, prompts, card: str) -> None:
 
 # ----- phase 5 ---------------------------------------------------------------
 
+def _long_prompts(vocab):
+    import numpy as np
+    rng = np.random.default_rng(6)
+    return [rng.integers(1, vocab, size=n).astype(np.int32)
+            for n in LONG_PROMPTS]
+
+
 def serve_long_prompts(cfg, params, card: str):
     """Full-width qwen2-0.5b on prompts of 1023 to 4000 tokens: all 8 at
     once (one admission round, one batched prefill in the bucket of the
@@ -952,18 +1050,17 @@ def serve_long_prompts(cfg, params, card: str):
     runs the flash kernel, every decode step a decode kernel."""
     import numpy as np
     import torch
-    rng = np.random.default_rng(6)
-    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
-               for n in LONG_PROMPTS]
+    prompts = _long_prompts(cfg.vocab)
     max_new = [LONG_MAX_NEW] * len(prompts)
     runs, bad = {}, []
     for name, pages, one_stream in (("contiguous", False, False),
                                     ("paged", True, False),
                                     ("one stream", False, True)):
         live = fresh_peak()
+        rounds = []
         outs, eng, counts, dec_s, wall = serve_once(
             cfg, params, prompts, pages, "cuda", max_new,
-            one_stream=one_stream, max_len=LONG_MAX_LEN)
+            one_stream=one_stream, max_len=LONG_MAX_LEN, rounds=rounds)
         prefills, steps = eng.stats["prefills"], eng.stats["decode_steps"]
         expect = {k: 0 for k in counts}
         expect["paged_decode" if pages else "ragged_decode"] = \
@@ -979,6 +1076,8 @@ def serve_long_prompts(cfg, params, card: str):
             f"tokens in {dec_s:.3f}s); max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({live:.2f} "
             f"GiB live before the run); on {card}")
+        log("  " + admission_rounds(f"long prompts {name}", eng, rounds,
+                                    bad))
         if not all(len(o) == LONG_MAX_NEW and all(0 <= t < cfg.vocab
                                                   for t in o) for o in outs):
             bad.append(f"{name}: a request came back without its "
@@ -988,7 +1087,7 @@ def serve_long_prompts(cfg, params, card: str):
         runs[name] = {"outs": outs, "launches": counts["flash_attention"],
                       "decode_launches": counts["paged_decode" if pages
                                                 else "ragged_decode"],
-                      "tok_s": tok / dec_s}
+                      "tok_s": tok / dec_s, "rounds": rounds}
         del eng
     total = sum(map(len, runs["contiguous"]["outs"]))
     for other in ("paged", "one stream"):
@@ -1125,6 +1224,73 @@ def graph_vs_eager(prompts, cfg, params, card: str) -> dict:
     if bad:
         raise AssertionError("; ".join(bad))
     return rates
+
+
+def admission_vs_eager(runs, prompts, cfg, params, card: str) -> dict:
+    """Bucketed admission as CUDA graphs against the eager body, at full
+    width, on six paths, contiguous and paged each: qwen2-0.5b's short
+    prompts, whose graph runs are phase 4's; qwen2-0.5b's long prompts
+    (phase 5's, each twice: 16 requests, so the second round of 8, in
+    the same bucket, replays the graph the first captured); and
+    granite-moe-1b-a400m at full width and depth in bf16 on phase 14's
+    prompts.  Each path also serves with the engine's admission runner
+    swapped for the eager body (the horizons still replay their graphs).
+    Gates: the same tokens, every one; both modes' launches (flash =
+    attention layers x prefills: a replay adds the launches its capture
+    held); one admission graph per bucket used in graph mode, none in
+    eager mode.  Prints each run's admission rounds: seconds of the
+    rounds that captured (warm-up, capture and replay) and the pool bytes
+    they added, and the later rounds' seconds.  -> {path: {mode:
+    rounds}}."""
+    from repro_torch.configs import get_config
+    granite = get_config("granite-moe-1b-a400m")
+    long_prompts = _long_prompts(cfg.vocab) * 2
+    g_prompts = _prompts(granite.vocab, seed=9)[:N_REQUESTS]
+    g_params = _family_weights(granite, card)
+    cases = (
+        ("qwen2-0.5b short contiguous", cfg, params, prompts, False, SMAX,
+         MAX_NEW, runs["ragged_decode"]),
+        ("qwen2-0.5b short paged", cfg, params, prompts, True, SMAX,
+         MAX_NEW, runs["paged_decode"]),
+        ("qwen2-0.5b long contiguous", cfg, params, long_prompts, False,
+         LONG_MAX_LEN, LONG_MAX_NEW, None),
+        ("qwen2-0.5b long paged", cfg, params, long_prompts, True,
+         LONG_MAX_LEN, LONG_MAX_NEW, None),
+        ("granite-moe-1b-a400m bf16 contiguous", granite, g_params,
+         g_prompts, False, SMAX, MAX_NEW, None),
+        ("granite-moe-1b-a400m bf16 paged", granite, g_params, g_prompts,
+         True, SMAX, MAX_NEW, None))
+    bad, out = [], {}
+    for name, c, p, pr, pages, max_len, max_new, graph in cases:
+        outs, out[name] = {}, {}
+        if graph is not None:
+            outs["graph"], out[name]["graph"] = graph["outs"], \
+                graph["rounds"]
+        for mode in ("graph", "eager"):
+            if mode in outs:
+                continue
+            fresh_peak()
+            horizons, rounds = [], []
+            outs[mode], eng, counts, dec_s, _ = serve_once(
+                c, p, pr, pages, "cuda", max_new=[max_new] * len(pr),
+                max_len=max_len, horizons=horizons,
+                eager_admission=mode == "eager", rounds=rounds)
+            expect = _expected_launches(c, eng, sum(horizons))
+            log(f"{name} {mode}: {eng.stats['prefills']} prefills, "
+                f"decode {eng.stats['busy_slot_steps'] / dec_s:.1f} tok/s; "
+                f"launches {counts} (expected {expect}); "
+                + admission_rounds(f"{name} {mode}", eng, rounds, bad,
+                                   eager=mode == "eager") + f"; on {card}")
+            if counts != expect:
+                bad.append(f"{name} {mode}: launches {counts} != {expect}")
+            out[name][mode] = rounds
+            del eng
+        _gate_equal(f"{name}: admission graphs vs eager body",
+                    outs["graph"], outs["eager"], card, bad)
+    del g_params
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
 
 
 # ----- phase 7 ---------------------------------------------------------------
@@ -1720,19 +1886,6 @@ def _fleet_run(client, prompts_at):
     return [out.get(r) for r in rids], counts, expect, wall, step_s[0]
 
 
-def _pool_bytes(groups):
-    """Bytes the card holds in the graph memory pools of ``groups``
-    (segments of ``torch.cuda.memory_snapshot()`` by pool id); None when
-    the snapshot names no pools."""
-    import torch
-    ids = {tuple(g._pool) for g in groups if g._pool is not None}
-    segments = torch.cuda.memory_snapshot()
-    if not any("segment_pool_id" in seg for seg in segments):
-        return None
-    return sum(seg["total_size"] for seg in segments
-               if tuple(seg.get("segment_pool_id", ())) in ids)
-
-
 def _fleet_fp32(cfg32, w32, prompts_at, device, card, bad) -> dict:
     """The fp32 runs, each gated on tokens equal to a single continuous
     engine on the same prompts, on its launch counts, and on at most K
@@ -1827,6 +1980,7 @@ def _fleet_bf16(cfg, weights, prompts_at, card, bad) -> dict:
     import torch
     from repro_torch.core.plan import SharingVector
     from repro_torch.serve import connect
+    from repro_torch.serve.engine import pool_bytes
     result = {}
     for execs in (1, 4):
         gc.collect()
@@ -1846,7 +2000,7 @@ def _fleet_bf16(cfg, weights, prompts_at, card, bad) -> dict:
                            f"{graphs}, {clock.count} captured in run "
                            f"{attempt + 1}")
             if attempt == 0:
-                pools = _pool_bytes(groups.values())
+                pools = pool_bytes(groups.values())
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
                 reserved = torch.cuda.max_memory_reserved() / 2 ** 30
                 result[execs] = {"tok_s": tok / wall, "wall": wall,
@@ -2480,7 +2634,7 @@ def _planner_bf16(cfg, weights, prompts_at, plans, card, bad) -> dict:
     import gc
     import torch
     from repro_torch.core.plan import EndpointPlan
-    from repro_torch.serve.engine import clear_exec_groups
+    from repro_torch.serve.engine import clear_exec_groups, pool_bytes
     result = {}
     for name, vector in plans.items():
         gc.collect()
@@ -2502,7 +2656,7 @@ def _planner_bf16(cfg, weights, prompts_at, plans, card, bad) -> dict:
                 bad.append(f"planner bf16 {name}: launches {counts} != "
                            f"{expect} or graphs {graphs}")
             if attempt == 0:
-                pools = _pool_bytes(groups.values())
+                pools = pool_bytes(groups.values())
                 reserved = torch.cuda.max_memory_reserved() / 2 ** 30
                 result[name] = {"tok_s": tok / wall, "graphs": graphs,
                                 "compiles": compiles, "pools": pools,
@@ -4040,7 +4194,7 @@ def main() -> int:
     phase("kernels vs plain versions", check_kernels)
     phase("rglru_scan vs plain version", check_rglru)
     phase("flash_attention vs plain version", check_flash)
-    long = rates = None
+    long = rates = admission = None
     served = phase("serve qwen2-0.5b at full width", serve_full_width, card)
     if served is not None:
         phase("horizon cut vs uncut", horizon_cap, *served[2:], served[1],
@@ -4049,6 +4203,8 @@ def main() -> int:
                      serve_long_prompts, *served[2:], card)
         rates = phase("fused horizon: graph vs eager", graph_vs_eager,
                       *served[1:], card)
+        admission = phase("bucketed admission: graphs vs eager body",
+                          admission_vs_eager, *served, card)
     phase("smoke config at fp32: card vs CPU", smoke_card_vs_cpu)
     rg = phase("serve recurrentgemma-2b at full width",
                serve_recurrentgemma, card)
@@ -4130,6 +4286,12 @@ def main() -> int:
                 f"{name} {r['graph']:.1f}, {r['graph, no capture']:.1f} vs "
                 f"{r['eager']:.1f}" for name, r in rates.items())
             + f"; on {card}")
+    if admission is not None:
+        log("admission s a round after the captures, graphs vs eager body "
+            "(mean over rounds): " + "; ".join(
+                f"{name} {_mean_s(r['graph'], False):.4f} vs "
+                f"{_mean_s(r['eager'], False):.4f}"
+                for name, r in admission.items()) + f"; on {card}")
     log(f"decode tok/s, wave vs continuous (graphs, capture included) "
         f"on the wave phase's prompts: {surface['wave_tok_s']:.1f} vs "
         f"{surface['continuous_tok_s']:.1f}; on {card}")

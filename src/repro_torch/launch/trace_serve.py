@@ -6,27 +6,38 @@
     python -m repro_torch.launch.trace_serve --arch qwen2-0.5b \
         --max-len 4096 --prompt-lens 1023,1024,1025,1500,2047,2049,3000,4000
     python -m repro_torch.launch.trace_serve --arch granite-moe-1b-a400m \
-        --max-len 1024 --prompt-lens 64,128,256,512,64,128,256,512
+        --max-len 1024 --prompt-lens 64,128,256,512,64,128,256,512 --pages
     python -m repro_torch.launch.trace_serve --cell qwen2-0.5b:decode_32k
 
 Draws full-width weights on the card (``torch.Generator`` seed 0), warms
 the engine up (kernel builds, library handles) on two short requests,
 then serves the prompts on a ``ContinuousEngine`` (the executor under
-``connect``; 8 slots, decode horizon 8, contiguous cache, 104 new
-tokens per request) and traces three windows with ``torch.profiler``:
-the first admission round (one prefill per slot); the first 4 fused
-horizons with the engine's horizon runner swapped, here, for the eager
-body (``Model.decode_horizon`` launched op by op, as before the horizon
+``connect``; 8 slots, decode horizon 8, a contiguous cache or with
+``--pages`` a paged one of pages level 4, 104 new tokens per request)
+and traces windows with ``torch.profiler``.  Admission, where the
+engine admits in prefill buckets: a first round untraced, which captures
+the graph of each bucket it uses (``AdmissionGraphs``); then, after
+``evacuate`` and the same requests submitted again, one round with the
+engine's admission runner swapped for the eager body (the round
+launched op by op) and one round of graph replays, in the same slots
+and buckets.  Without buckets (recurrentgemma-2b, xlstm-1.3b) the first
+admission round is traced.  Then the first 4 fused horizons with the
+engine's horizon runner swapped, here, for the eager body
+(``Model.decode_horizon`` launched op by op, as before the horizon
 graphs); and, after one horizon that captures the graph of 8 steps, the
 next 4 horizons as the engine runs them, one graph replay each.  So the
-eager and the graph decode windows are read in one process.  For each
-window it prints the host seconds, the card's kernel time (the sum of
-every kernel's own time: one stream, so no overlap), the share of the
-window the card sat idle, and the kernels that took the most time, as
-one JSON line per window.  The 4 graph horizons after those are timed
-again unprofiled (host seconds only, a fourth line): the profiler's
-tracing costs time per kernel, which the graph's short gaps show.  The
-run continues unprofiled to the end.
+eager and the graph windows are read in one process.  For each window
+it prints the host seconds, the card's kernel time (the sum of every
+kernel's own time: one stream, so no overlap), the share of the window
+the card sat idle, and the kernels that took the most time, as one JSON
+line per window; the admission graph window also carries the capture
+round's host seconds and the bytes its captures added to the engine's
+graph memory pool (which the warm-up engine, of the same exec group,
+shares: a capture first reuses the blocks other graphs' captures
+freed).  The 4 graph horizons after those are timed again
+unprofiled (host seconds only, a last line): the profiler's tracing
+costs time per kernel, which the graph's short gaps show.  The run
+continues unprofiled to the end.
 
 ``--cell ARCH:CELL`` traces a decode cell of ``launch.shapes`` instead,
 set up by ``cell_setup``, which ``chip_smoke.py`` phase 17 also uses:
@@ -42,6 +53,7 @@ limit.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import time
@@ -50,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.core.plan import EndpointPlan
+from repro_torch.core.plan import EndpointPlan, SharingVector
 from repro_torch.launch.dryrun import bf16_params, rules_for
 from repro_torch.launch.shapes import SHAPES
 from repro_torch.launch.sharding import make_shard_fn
@@ -121,32 +133,80 @@ def _window(name, prof, host_s, top):
 
 def trace(eng, prompts, max_new: int = MAX_NEW,
           decode_calls: int = DECODE_CALLS, top: int = TOP):
-    """Serve ``prompts`` on the fused-horizon engine ``eng``, tracing the
-    first admission round, ``decode_calls`` horizons of the eager body,
-    then, after one horizon that captures its graph, ``decode_calls``
-    graph replays, and timing ``decode_calls`` more replays unprofiled;
-    -> the four window summaries."""
+    """Serve ``prompts`` on the fused-horizon engine ``eng``, tracing its
+    admission and ``decode_calls`` horizons of the eager body, then,
+    after one horizon that captures its graph, ``decode_calls`` graph
+    replays, and timing ``decode_calls`` more replays unprofiled; -> the
+    window summaries.
+
+    With prefill buckets the first admission round, which captures the
+    graph of each bucket it uses, runs untraced (its host seconds and the
+    pool bytes its captures added are kept).  ``evacuate`` then empties
+    the engine (its graphs stay) and the same requests, submitted again
+    in the same order, take the same slots in the same buckets: one
+    traced round of the eager body (the engine's admission runner
+    swapped for ``AdmissionGraphs.body``), evacuated and submitted again,
+    then one traced round of graph replays, which the run goes on from.
+    Without buckets (exact-length admission, never captured) the first
+    round is traced."""
     on_card = eng.device.type == "cuda"
 
     def sync():
         if on_card:
             torch.cuda.synchronize(eng.device)
 
-    for rid, p in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
-    eng.start()
+    def submit():
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=max_new))
+
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    sync()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        admitted = eng.admit_waiting()
+
+    def admission_window(name):
         sync()
-        host = time.perf_counter() - t0
-    admission = _window("admission", prof, host, top)
-    admission.update(prefills=admitted,
-                     prompt_tokens=sum(len(p) for p in prompts[:admitted]))
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            admitted = eng.admit_waiting()
+            sync()
+            host = time.perf_counter() - t0
+        win = _window(name, prof, host, top)
+        win.update(prefills=admitted,
+                   prompt_tokens=sum(len(p) for p in prompts[:admitted]))
+        return win
+
+    submit()
+    eng.start()
+    windows = []
+    if eng._admissions is not None:
+        sync()
+        if on_card:
+            # a capture empties the allocator's cache, which frees the pool
+            # memory of dead graphs: free it first, so that the difference
+            # is what these captures add
+            gc.collect()
+            torch.cuda.empty_cache()
+        before = pool_bytes([eng.group]) if on_card else 0
+        t0 = time.perf_counter()
+        eng.admit_waiting()
+        sync()
+        capture_s = time.perf_counter() - t0
+        after = pool_bytes([eng.group]) if on_card else 0
+        pool = None if before is None or after is None else after - before
+        eng.evacuate()
+        submit()
+        eng._run_admission = eng._admissions.body       # the eager body
+        windows.append(admission_window("admission eager"))
+        del eng._run_admission                          # the graphs
+        eng.evacuate()
+        submit()
+        graph = admission_window("admission graph")
+        graph.update(admission_graphs=eng.admission_graph_count(),
+                     capture_round_s=capture_s,
+                     capture_pool_bytes=pool)
+        windows.append(graph)
+    else:
+        windows.append(admission_window("admission"))
 
     def decode_window(name):
         with torch.profiler.profile(activities=acts) as prof:
@@ -183,7 +243,7 @@ def trace(eng, prompts, max_new: int = MAX_NEW,
         eng.admit_waiting()
         if not eng.step() and eng.n_active == 0:
             break
-    return [admission, eager, graph, unprofiled]
+    return windows + [eager, graph, unprofiled]
 
 
 def cell_inputs(model: Model, cell, seed: int = 1):
@@ -255,6 +315,8 @@ def main(argv=None):
     ap.add_argument("--prompt-lens", default=",".join(
         map(str, DEFAULT_PROMPTS)))
     ap.add_argument("--max-len", type=int, default=4096)
+    ap.add_argument("--pages", action="store_true",
+                    help="a paged cache (pages level 4)")
     ap.add_argument("--cell", default=None,
                     help="ARCH:CELL, a decode cell of launch.shapes")
     args = ap.parse_args(argv)
@@ -271,7 +333,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     params = Model(cfg, "cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
-    plan = EndpointPlan(n_slots=SLOTS, max_len=args.max_len,
+    plan = EndpointPlan(vector=SharingVector(pages=4 if args.pages else 1),
+                        n_slots=SLOTS, max_len=args.max_len,
                         decode_horizon=DECODE_HORIZON,
                         executor="continuous", use_ragged_kernel=True)
     rng = np.random.default_rng(3)
@@ -282,10 +345,10 @@ def main(argv=None):
     eng = ContinuousEngine(cfg, params, plan, device="cuda")
     windows = trace(eng, prompts)
     served = sum(len(r.output) for r in eng.done)
-    print(f"{args.arch}: {len(eng.done)} requests, {served} tokens; "
-          f"{card}")
+    print(f"{args.arch}: {len(eng.done)} requests, {served} tokens, "
+          f"paged {eng.paged}; {card}")
     for win in windows:
-        win.update(arch=args.arch, card=card)
+        win.update(arch=args.arch, paged=eng.paged, card=card)
         print(json.dumps(win))
 
 

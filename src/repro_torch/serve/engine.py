@@ -25,18 +25,24 @@ queued request may take it.  The two host-batching layers are kept:
   prompt alone at its exact length, and keep the contiguous cache even
   under a paged plan, as the reference does.
 
-The reference's jitted executables (``SharedSteps``) have one
-counterpart here, the horizon's: ``HorizonGraphs`` captures the fused
-horizon as one ``torch.cuda.CUDAGraph`` per ``n_steps`` at first use, on
-the engine's static buffers, and replays it as one launch per horizon;
-``graph_count()`` counts those graphs.  A graph binds the addresses of
-one engine's buffers, so what the engines of an exec group share is the
-memory the captures draw on: one ``ExecGroup`` per (config, ragged
-kernel, group id, device), the counterpart of ``SharedSteps``' key, owns
-one graph memory pool that every engine of the group captures into.
-Admission (prefill and scatter, the reference's jitted ``admit_packed``)
-and the K=1 loop stay eager.  Cache scatters write in place, indexed by
-the slot assignment the host already knows.
+The reference's jitted executables (``SharedSteps``) have two
+counterparts here.  ``HorizonGraphs`` captures the fused horizon as one
+``torch.cuda.CUDAGraph`` per ``n_steps`` at first use, on the engine's
+static buffers, and replays it as one launch per horizon;
+``graph_count()`` counts those graphs.  ``AdmissionGraphs`` does the same
+for a bucketed admission round, the reference's ``admit_packed`` and
+``admit_packed_paged``: one graph per prefill bucket holds the padded
+batched prefill on a fresh cache, the scatter of its rows into their
+slots (or pages), the argmax of the first tokens and, in fused mode, the
+decode-state update; ``admission_graph_count()`` counts those.  A graph
+binds the addresses of one engine's buffers, so what the engines of an
+exec group share is the memory the captures draw on: one ``ExecGroup``
+per (config, ragged kernel, group id, device), the counterpart of
+``SharedSteps``' key, owns one graph memory pool that every engine of the
+group captures into.  The exact-length admission (``_admit``),
+``prefill_only``, KV handoff landings and the K=1 decode step stay
+eager; their cache scatters write in place, indexed by the slot
+assignment the host already knows.
 
 The execs axis' signal is the reference's: wherever the reference calls
 one of its seven jitted executables, the engine records the key jit
@@ -130,59 +136,44 @@ def _leaf_pairs(full_stack, part_stack):
             yield dst, src, axis
 
 
-def _scatter_slots(full, many, slots: Sequence[int],
-                   lengths: Sequence[int]):
-    """Row ``i`` of the batched prefill cache ``many`` lands in slot
-    ``slots[i]`` of ``full``, in place (the reference rebuilt every leaf
-    with ``jnp.where``), and that slot's position pins to
-    ``lengths[i]``.  Every leaf lands whole along its batch axis: KV rows,
-    rolling windows and recurrent state alike."""
-    dev = full["idx"].device
-    n = len(slots)
-    s_idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
-    for dst, src, axis in _leaf_pairs(full["stack"], many["stack"]):
+def _scatter_slot(full, one, slot: int, length: int):
+    """The batch-1 cache ``one`` lands in slot ``slot`` of ``full``, in
+    place (the reference's ``_scatter_slot`` rebuilt every leaf), and that
+    slot's position pins to ``length``.  Every leaf lands whole along its
+    batch axis: KV rows, rolling windows and recurrent state alike.  A
+    bucketed round's multi-row scatter is ``AdmissionGraphs.body``'s."""
+    for dst, src, axis in _leaf_pairs(full["stack"], one["stack"]):
         if axis == 0:
-            dst[s_idx] = src[:n]
+            dst[slot] = src[0]
         else:
-            dst[:, s_idx] = src[:, :n]
-    full["idx"][s_idx] = torch.as_tensor(lengths, dtype=torch.int32,
-                                         device=dev)
+            dst[:, slot] = src[:, 0]
+    full["idx"][slot] = length
 
 
-def _scatter_slots_paged(full, many, slots: Sequence[int],
-                         lengths: Sequence[int], pt: np.ndarray,
-                         n_pages: int):
-    """Paged variant of ``_scatter_slots``: row ``i`` of the contiguous
-    prefill cache splits into pages and lands, in place, in the physical
-    pages slot ``slots[i]`` maps in the host page table ``pt`` (pool of
+def _scatter_slot_paged(full, one, slot: int, length: int,
+                        pt_row: np.ndarray, n_pages: int):
+    """Paged variant of ``_scatter_slot``: the batch-1 contiguous cache
+    ``one`` splits into pages and lands, in place, in the physical pages
+    of ``pt_row``, slot ``slot``'s row of the host page table (pool of
     ``n_pages``).  The reference dropped sentinel entries with
     ``mode="drop"``; here the host leaves them out of the index lists.
-    The admitted slots' table rows install in the device table."""
+    The row installs in the device table."""
     dev = full["idx"].device
-    max_pages = pt.shape[1]
-    src_row, src_page, dst_page = [], [], []
-    for row, slot in enumerate(slots):
-        for j, page in enumerate(pt[slot]):
-            if page < n_pages:
-                src_row.append(row)
-                src_page.append(j)
-                dst_page.append(int(page))
-    sr = torch.as_tensor(src_row, dtype=torch.long, device=dev)
-    sp = torch.as_tensor(src_page, dtype=torch.long, device=dev)
-    dp = torch.as_tensor(dst_page, dtype=torch.long, device=dev)
-    for dst, src, axis in _leaf_pairs(full["stack"], many["stack"]):
+    max_pages = pt_row.shape[0]
+    keep = np.flatnonzero(pt_row < n_pages)
+    sp = torch.as_tensor(keep, dtype=torch.long, device=dev)
+    dp = torch.as_tensor(pt_row[keep], dtype=torch.long, device=dev)
+    for dst, src, axis in _leaf_pairs(full["stack"], one["stack"]):
         ps = dst.shape[axis + 1]
         shape = list(src.shape)
         shape[axis + 1:axis + 2] = [max_pages, ps]
         pages = src.reshape(shape)
         if axis == 0:
-            dst[dp] = pages[sr, sp]
+            dst[dp] = pages[0, sp]
         else:
-            dst[:, dp] = pages[:, sr, sp]
-    s_idx = torch.as_tensor(slots, dtype=torch.long, device=dev)
-    full["idx"][s_idx] = torch.as_tensor(lengths, dtype=torch.int32,
-                                         device=dev)
-    full["pt"][s_idx] = torch.as_tensor(pt[list(slots)], device=dev)
+            dst[:, dp] = pages[:, 0, sp]
+    full["idx"][slot] = length
+    full["pt"][slot] = torch.as_tensor(pt_row, device=dev)
 
 
 def auto_page_size(max_len: int, target: int = 0) -> int:
@@ -270,11 +261,11 @@ class ExecGroup:
     ``SharedSteps``, keyed as the reference keys it, by (config,
     ``use_ragged_kernel``, group id) and here the device.
 
-    A horizon graph binds one engine's buffers, so the group cannot
-    share the graphs themselves.  It shares the memory they run in: one
-    CUDA graph memory pool (``torch.cuda.graph_pool_handle()``, made at
-    the group's first capture) that every engine of the group captures
-    its horizon graphs into, so at exec level 4 a fleet holds one pool of
+    A horizon or admission graph binds one engine's buffers, so the
+    group cannot share the graphs themselves.  It shares the memory they
+    run in: one CUDA graph memory pool (``torch.cuda.graph_pool_handle()``,
+    made at the group's first capture) that every engine of the group
+    captures its graphs into, so at exec level 4 a fleet holds one pool of
     capture intermediates where level 1 holds one per engine.
     ``captures`` counts the graphs the group's engines captured.
 
@@ -290,11 +281,14 @@ class ExecGroup:
     stack keeps: the group's graphs replay one at a time, on one stream,
     and never overlap.  Every engine replays on the current stream, and
     every external ``step()`` ends in a host sync (the trace drain)
-    before the fleet steps another engine.  A replay's outputs never
-    live in the pool: ``HorizonGraphs.body`` copies the cache's ``idx``,
-    the state and the trace into buffers allocated outside any capture,
-    so only a capture's intermediates, dead once its replay ends, share
-    the pool's memory.  A pool lives as long as the graphs captured into
+    before the fleet steps another engine (an admission round in fused
+    mode does not sync, but the engine's next horizon follows it on the
+    same stream).  A replay's outputs never live in the pool: each body
+    writes what it produces (the cache and its ``idx`` and ``pt``, the
+    state, the trace, the first tokens) into buffers allocated outside
+    any capture, so only a capture's intermediates (an admission's
+    prefill cache among them), dead once its replay ends, share the
+    pool's memory.  A pool lives as long as the graphs captured into
     it, so an engine that moves to another group keeps its graphs
     valid."""
 
@@ -330,6 +324,18 @@ class ExecGroup:
         return self._pool
 
 
+def pool_bytes(groups) -> Optional[int]:
+    """Bytes the card holds in the graph memory pools of ``groups``
+    (segments of ``torch.cuda.memory_snapshot()`` by pool id); None when
+    the snapshot names no pools."""
+    ids = {tuple(g._pool) for g in groups if g._pool is not None}
+    segments = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg.get("segment_pool_id", ())) in ids)
+
+
 #: every exec group of the process, by (config, use_ragged_kernel,
 #: group id, device), as the reference caches ``_shared_steps``
 _EXEC_GROUPS: Dict[tuple, ExecGroup] = {}
@@ -356,7 +362,83 @@ def shared_exec_group(cfg: ArchConfig, use_ragged_kernel: bool,
     return _EXEC_GROUPS[key]
 
 
-class HorizonGraphs:
+class _Graphs:
+    """One engine body as CUDA graphs, one per value of its static
+    argument (a horizon's ``n_steps``, an admission's bucket), the
+    bookkeeping ``HorizonGraphs`` and ``AdmissionGraphs`` share.
+
+    On a CUDA device ``run(key)`` captures ``body(key)`` at the key's
+    first use, as jit compiles at first use, and replays it.  The capture
+    runs on the device's capture stream, which every engine shares, into
+    the memory pool of the engine's ``group`` at the time of the capture
+    (an ``ExecGroup``, whose invariant the caller keeps), and is counted
+    there.  Warm-ups and captures leave the kernel launch counters as
+    they were; each replay adds the launches its graph holds.  A failed
+    warm-up, capture or replay raises.  On the CPU nothing is captured
+    and ``run`` calls the body."""
+
+    def __init__(self, device: torch.device, group: ExecGroup):
+        self.group = group
+        #: key -> (graph, the launch counts one replay adds)
+        self.graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph,
+                                          List[Dict[Hashable, int]]]] = {}
+        self._stream = _capture_stream(device) \
+            if device.type == "cuda" else None
+
+    def body(self, key):
+        raise NotImplementedError
+
+    def _warm_up(self, fn) -> None:
+        """``fn()`` eagerly on the capture stream, after the current
+        stream's work and before any later (kernel builds and library
+        handles, which must not fall inside a capture); the launch
+        counters stay as they were."""
+        counts = _launch_counts()
+        current = torch.cuda.current_stream(self._stream.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            fn()
+        current.wait_stream(self._stream)
+        _set_launch_counts(counts)
+
+    def _capture(self, key):
+        counts = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # no garbage collection during the capture: one could free another
+        # engine's graphs (held by a dead reference cycle), and releasing
+        # them while this stream captures invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.group.pool(),
+                                  stream=self._stream):
+                self.body(key)
+        finally:
+            if collecting:
+                gc.enable()
+        self.group.captures += 1
+        held = [{name: n - before.get(name, 0)
+                 for name, n in after.items() if n != before.get(name, 0)}
+                for after, before in zip(_launch_counts(), counts)]
+        _set_launch_counts(counts)
+        return graph, held
+
+    def run(self, key):
+        """``body(key)``: its graph's replay on the card (captured first
+        if new), the body itself on the CPU."""
+        if self._stream is None:
+            self.body(key)
+            return
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(key)
+        graph, held = self.graphs[key]
+        graph.replay()
+        for counter, add in zip(_LAUNCH_COUNTERS, held):
+            for name, n in add.items():
+                counter[name] = counter.get(name, 0) + n
+
+
+class HorizonGraphs(_Graphs):
     """The fused decode horizon as executables: the port's counterpart of
     the reference's jitted ``SharedSteps.horizon``.
 
@@ -365,24 +447,19 @@ class HorizonGraphs:
     copies what the model hands back as new tensors (the cache's ``idx``,
     the state, the trace) into those same tensors and into one static
     (K, B) trace per leaf.  The engine's host-side writers (the admission
-    scatters, ``_land``, ``_retire``) write the same tensors in place, so
+    rounds, ``_land``, ``_retire``) write the same tensors in place, so
     every address the body reads stays fixed for the engine's life.
 
     On a CUDA device a call captures the body once per ``n_steps`` (the
-    engine's cut of the horizon, 1..K, so at most K graphs) at first use,
-    as jit compiles at first use, and replays it: one launch for the whole
-    horizon.  The body is warmed up once (kernel builds, library handles)
-    on the device's capture stream, which every engine shares, at
-    construction, when every slot is drained, so it writes nothing.
-    Warm-up and capture leave the kernel launch counters as they were;
-    each replay adds the launches its graph holds.  A failed warm-up or
-    capture raises.  Each graph is captured into the memory pool of the
-    engine's ``group`` at the time of the capture (an ``ExecGroup``,
-    whose invariant the caller keeps), and counted there.  On the CPU
-    nothing is captured and a call runs the body."""
+    engine's cut of the horizon, 1..K, so at most K graphs) at first use
+    and replays it: one launch for the whole horizon (``_Graphs``).  The
+    body is warmed up once at construction, when every slot is drained,
+    so it writes nothing."""
 
     def __init__(self, model: Model, params, cache, state, *, horizon: int,
                  max_len: int, use_ragged_kernel: bool, group: ExecGroup):
+        b, dev = state["tok"].shape[0], state["tok"].device
+        super().__init__(dev, group)
         self.model = model
         self.params = params
         self.cache = cache
@@ -390,22 +467,10 @@ class HorizonGraphs:
         self.horizon = horizon
         self.max_len = max_len
         self.use_ragged_kernel = use_ragged_kernel
-        self.group = group
-        b, dev = state["tok"].shape[0], state["tok"].device
         self.trace = {name: torch.zeros((horizon, b), dtype=dt, device=dev)
                       for name, dt in _TRACE}
-        #: n_steps -> (graph, the launch counts one replay adds)
-        self.graphs: Dict[int, Tuple[torch.cuda.CUDAGraph,
-                                     List[Dict[Hashable, int]]]] = {}
-        self._stream = None
-        if dev.type == "cuda":
-            self._stream = _capture_stream(dev)
-            counts = _launch_counts()
-            self._stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(self._stream):
-                self.body(1)
-            torch.cuda.current_stream(dev).wait_stream(self._stream)
-            _set_launch_counts(counts)
+        if self._stream is not None:
+            self._warm_up(lambda: self.body(1))
 
     def body(self, n_steps: int):
         """One horizon of ``n_steps`` steps, eagerly, on the static
@@ -421,42 +486,158 @@ class HorizonGraphs:
             buf.copy_(trace[name])
         return self.trace
 
-    def _capture(self, n_steps: int):
-        counts = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection during the capture: one could free another
-        # engine's graphs (held by a dead reference cycle), and releasing
-        # them while this stream captures invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, pool=self.group.pool(),
-                                  stream=self._stream):
-                self.body(n_steps)
-        finally:
-            if collecting:
-                gc.enable()
-        self.group.captures += 1
-        held = [{name: n - before.get(name, 0)
-                 for name, n in after.items() if n != before.get(name, 0)}
-                for after, before in zip(_launch_counts(), counts)]
-        _set_launch_counts(counts)
-        return graph, held
-
     def __call__(self, n_steps: int):
         """One horizon of ``n_steps`` steps: its graph's replay on the
-        card (captured first if new), the body on the CPU; -> the static
-        trace."""
-        if self._stream is None:
-            return self.body(n_steps)
-        if n_steps not in self.graphs:
-            self.graphs[n_steps] = self._capture(n_steps)
-        graph, held = self.graphs[n_steps]
-        graph.replay()
-        for counter, add in zip(_LAUNCH_COUNTERS, held):
-            for name, n in add.items():
-                counter[name] = counter.get(name, 0) + n
+        card, the body on the CPU; -> the static trace."""
+        self.run(n_steps)
         return self.trace
+
+
+#: the rows of ``AdmissionGraphs.rows``, one (n_slots,) int64 vector each:
+#: the prefill's ``last_index`` per row, then each row's destination
+#: slot and source row and the values it lands there (padding rows
+#: repeat the round's first row in all of these), then, paged, the
+#: source and destination of the one page pair a sentinel entry repeats
+_ROWS = ("last", "slot", "src", "length", "remaining", "eos", "has_eos",
+         "anchor_src", "anchor_page")
+
+
+class AdmissionGraphs(_Graphs):
+    """A bucketed admission round as executables: the port's counterpart
+    of the reference's jitted ``admit_packed`` and ``admit_packed_paged``,
+    one graph per prefill bucket.
+
+    ``load(...)`` takes a round as the reference's ``admit_packed`` does
+    (``(n_slots, bucket)`` tokens, ``last_index``, the row-major slot
+    assignment with its ``valid`` mask, and each row's length, budget and
+    EOS; paged, the host page table) and fills the static inputs with
+    ``copy_``: the bucket's token buffer, one (9, n_slots) int64 block of
+    per-row vectors (``_ROWS``) and, paged, a ``(n_slots, max_pages)``
+    table.  ``body(bucket)`` is the round on those buffers: the prefill on
+    a fresh ``init_cache(n_slots, max_len)``, every row of it landing in
+    its slot of the engine's cache (or, paged, each page in the physical
+    page its slot's table row names) in place, ``idx`` pinned to each
+    length, the table installed whole, the argmax of each row's logits
+    into the static ``first`` and, in fused mode, the five state tensors
+    written in place.
+
+    The graph has fixed shapes, where the reference masks the rows past
+    the round (``_slot_mapping``, ``jnp.where``, ``mode="drop"``).  Here a
+    padding row repeats the round's first row: its destination slot, its
+    source row and every value it lands, so that it writes what that row
+    writes, and the sentinel entries of a table row repeat the round's
+    first page pair.  Repeated indices thus always carry equal values, and
+    no slot or page outside the round is written.
+
+    On the card the body is captured at the first round of each bucket,
+    after a warm-up of that bucket's prefill alone (which writes no
+    slot), and replayed after (``_Graphs``).  On the CPU it runs
+    eagerly."""
+
+    def __init__(self, model: Model, params, cache, state, *,
+                 buckets: Sequence[int], max_len: int, n_pages: int,
+                 group: ExecGroup):
+        n, dev = cache["idx"].shape[0], cache["idx"].device
+        super().__init__(dev, group)
+        self.model = model
+        self.params = params
+        self.cache = cache
+        self.state = state               # fused mode's, else None
+        self.n_slots = n
+        self.max_len = max_len
+        self.n_pages = n_pages           # paged: the pool's pages, else 0
+        self.tokens = {b: torch.zeros((n, b), dtype=torch.int32, device=dev)
+                       for b in buckets}
+        self.rows = torch.zeros((len(_ROWS), n), dtype=torch.int64,
+                                device=dev)
+        self.pt = (torch.zeros_like(cache["pt"]) if "pt" in cache
+                   else None)
+        self.first = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def load(self, toks, last_index, slot_ids, valid, lengths, remaining,
+             eos, has_eos, pt=None) -> int:
+        """Fill the static inputs with one round (numpy arrays, as the
+        reference's ``admit_packed`` takes them); -> its bucket."""
+        n = self.n_slots
+        bucket = toks.shape[1]
+        if bucket not in self.tokens:
+            raise ValueError(f"no admission bucket of {bucket} tokens "
+                             f"({sorted(self.tokens)})")
+        real = np.flatnonzero(valid)
+        if real.size == 0:
+            raise ValueError("an admission round needs a row")
+        r0 = int(real[0])
+        src = np.where(valid, np.arange(n), r0)
+        block = np.zeros((len(_ROWS), n), np.int64)
+        block[0] = last_index
+        block[1] = np.asarray(slot_ids)[src]
+        block[2] = src
+        for i, values in enumerate((lengths, remaining, eos, has_eos), 3):
+            block[i] = np.asarray(values)[src]
+        if self.pt is not None:
+            table = np.asarray(pt, np.int32)
+            page = int(table[block[1, 0], 0])
+            if page >= self.n_pages:
+                raise ValueError(f"slot {block[1, 0]} holds no page")
+            block[7] = r0 * table.shape[1]
+            block[8] = page
+            self.pt.copy_(torch.from_numpy(table))
+        self.rows.copy_(torch.from_numpy(block))
+        self.tokens[bucket].copy_(torch.from_numpy(
+            np.ascontiguousarray(toks, np.int32)))
+        return bucket
+
+    def body(self, bucket: int):
+        """The loaded round, eagerly, on the static buffers; -> the static
+        ``first`` (each row's first token)."""
+        n = self.n_slots
+        last, slot, src, length, remaining, eos, has_eos, anchor_src, \
+            anchor_page = self.rows
+        logits, many = self.model.prefill(
+            self.params, {"tokens": self.tokens[bucket]},
+            self.model.init_cache(n, self.max_len), last_index=last)
+        self.first.copy_(logits.argmax(-1))
+        pairs = _leaf_pairs(self.cache["stack"], many["stack"])
+        if self.pt is None:
+            for dst, part, axis in pairs:
+                dst.index_copy_(axis, slot, part.index_select(axis, src))
+        else:
+            mp = self.pt.shape[1]
+            table = self.pt.index_select(0, slot).long()
+            real = table < self.n_pages
+            cols = torch.arange(mp, device=table.device)
+            to = torch.where(real, table, anchor_page[:, None]).reshape(-1)
+            fr = torch.where(real, src[:, None] * mp + cols,
+                             anchor_src[:, None]).reshape(-1)
+            for dst, part, axis in pairs:
+                shape = part.shape
+                pages = part.reshape(shape[:axis] + (n * mp,
+                                                     dst.shape[axis + 1])
+                                     + shape[axis + 2:])
+                dst.index_copy_(axis, to, pages.index_select(axis, fr))
+            self.cache["pt"].copy_(self.pt)
+        self.cache["idx"].index_copy_(0, slot, length.to(torch.int32))
+        if self.state is not None:
+            st = self.state
+            st["tok"].index_copy_(0, slot, self.first.index_select(0, src))
+            st["remaining"].index_copy_(0, slot, remaining.to(torch.int32))
+            st["finished"].index_fill_(0, slot, False)
+            st["eos"].index_copy_(0, slot, eos.to(torch.int32))
+            st["has_eos"].index_copy_(0, slot, has_eos.to(torch.bool))
+        return self.first
+
+    def _capture(self, bucket: int):
+        self._warm_up(lambda: self.model.prefill(
+            self.params, {"tokens": self.tokens[bucket]},
+            self.model.init_cache(self.n_slots, self.max_len),
+            last_index=self.rows[0]))
+        return super()._capture(bucket)
+
+    def __call__(self, bucket: int):
+        """The loaded round: its bucket's graph replayed on the card, the
+        body on the CPU; -> the static ``first``."""
+        self.run(bucket)
+        return self.first
 
 
 class ServeEngine:
@@ -635,6 +816,7 @@ class ContinuousEngine:
         self._has_eos = None
         self._dev_state = None     # device-resident state (fused mode)
         self._horizons: Optional[HorizonGraphs] = None    # fused mode
+        self._admissions: Optional[AdmissionGraphs] = None   # buckets
 
     def _resolve_buckets(self, buckets: Buckets) -> Tuple[int, ...]:
         """-> the active bucket set (empty tuple = exact-length prefill)."""
@@ -677,11 +859,12 @@ class ContinuousEngine:
         at K=1."""
         return 0 if self._horizons is None else len(self._horizons.graphs)
 
-    def _record_merge(self, one) -> None:
-        """A batch-1 cache lands in a slot: the reference's jitted
-        ``merge`` (``merge_paged`` on the paged layout)."""
-        self.group.record("merge_paged" if self.page_pool is not None
-                          else "merge", self._cache_sig, signature(one))
+    def admission_graph_count(self) -> int:
+        """Admission graphs this engine has captured: at most one per
+        prefill bucket it admitted a round in, 0 on the CPU (nothing is
+        captured there) and without buckets."""
+        return 0 if self._admissions is None \
+            else len(self._admissions.graphs)
 
     def submit(self, req: Request):
         req.output = []
@@ -710,38 +893,36 @@ class ContinuousEngine:
         self.admit_order.append(req.rid)
         self.admit_steps[req.rid] = self._step_no
 
-    def _land(self, many, logits, batch: List[Tuple[int, Request]]):
-        """Scatter a prefill's rows (row j = batch[j]) into their slots,
-        then update the decode state and bind the requests."""
-        slots = [slot for slot, _ in batch]
-        lengths = [len(req.prompt) for _, req in batch]
+    def _merge(self, one, slot: int, length: int):
+        """Land the batch-1 cache ``one`` in ``slot`` (its pages, when
+        paged) and pin the slot's position to ``length``: the reference's
+        jitted ``merge`` (``merge_paged`` on the paged layout)."""
+        self.group.record("merge_paged" if self.page_pool is not None
+                          else "merge", self._cache_sig, signature(one))
         if self.page_pool is not None:
-            _scatter_slots_paged(self._cache, many, slots, lengths,
-                                 self._pt, self.page_pool.total_pages)
+            _scatter_slot_paged(self._cache, one, slot, length,
+                                self._pt[slot], self.page_pool.total_pages)
         else:
-            _scatter_slots(self._cache, many, slots, lengths)
-        first = logits.argmax(-1).to(torch.int32)[:len(batch)]
+            _scatter_slot(self._cache, one, slot, length)
+
+    def _land(self, one, logits, slot: int, req: Request):
+        """Land an exact-length prefill in ``slot``, then update the
+        decode state and bind the request."""
+        self._merge(one, slot, len(req.prompt))
+        first = logits[0].argmax(-1).to(torch.int32)
         if self._dev_state is not None:
             # the device state is updated in place (the reference rebuilt
             # it with .at[].set); no host sync: the first token surfaces
             # in the next horizon's trace
-            s_idx = self._dev(np.asarray(slots, np.int64))
             st = self._dev_state
-            st["tok"][s_idx] = first
-            st["remaining"][s_idx] = self._dev(np.asarray(
-                [r.max_new_tokens for _, r in batch], np.int32))
-            st["finished"][s_idx] = False
-            st["eos"][s_idx] = self._dev(np.asarray(
-                [-1 if r.eos_id is None else r.eos_id for _, r in batch],
-                np.int32))
-            st["has_eos"][s_idx] = self._dev(np.asarray(
-                [r.eos_id is not None for _, r in batch]))
-            for slot, req in batch:
-                self._bind(slot, req)
+            st["tok"][slot] = first
+            st["remaining"][slot] = req.max_new_tokens
+            st["finished"][slot] = False
+            st["eos"][slot] = -1 if req.eos_id is None else req.eos_id
+            st["has_eos"][slot] = req.eos_id is not None
+            self._bind(slot, req)
         else:
-            first = first.cpu().numpy()                     # one sync
-            for j, (slot, req) in enumerate(batch):
-                self._bind(slot, req, int(first[j]))
+            self._bind(slot, req, int(first))               # one sync
             self.stats["host_syncs"] += 1
 
     def _admit(self, slot: int, req: Request):
@@ -753,34 +934,61 @@ class ContinuousEngine:
                           signature(one))
         logits, one = self.model.prefill(self.params, {"tokens": prompt},
                                          one)
-        self._record_merge(one)
-        self._land(one, logits, [(slot, req)])
+        self._land(one, logits, slot, req)
         self.stats["prefills"] += 1
         self.stats["prefilled_requests"] += 1
 
     def _admit_batch(self, batch: List[Tuple[int, Request]]):
         """Admit a round at once: every prompt pads to the round's length
-        bucket and ONE fixed (n_slots)-row batched prefill runs.  Row and
-        length padding are invisible (independent rows; causal
-        attention), so outputs match the exact-length path."""
+        bucket, and one admission round (``AdmissionGraphs``: on the card
+        its bucket's graph) runs ONE fixed (n_slots)-row batched prefill,
+        lands every row in its slot and, in fused mode, updates the
+        device state without a host sync.  Row and length padding are
+        invisible (independent rows; causal attention), so outputs match
+        the exact-length path."""
         n = self.n_slots
         bucket = self._bucket_of(max(len(r.prompt) for _, r in batch))
         toks = np.zeros((n, bucket), np.int32)
         last = np.zeros((n,), np.int32)
-        for j, (_, req) in enumerate(batch):
-            toks[j, :len(req.prompt)] = req.prompt
-            last[j] = len(req.prompt) - 1
+        slot_ids = np.zeros((n,), np.int32)
+        valid = np.zeros((n,), bool)
+        lengths = np.zeros((n,), np.int32)
+        remaining = np.zeros((n,), np.int32)
+        eos = np.full((n,), -1, np.int32)
+        has_eos = np.zeros((n,), bool)
+        for j, (slot, req) in enumerate(batch):
+            ln = len(req.prompt)
+            toks[j, :ln] = req.prompt
+            last[j] = ln - 1
+            slot_ids[j] = slot
+            valid[j] = True
+            lengths[j] = ln
+            remaining[j] = req.max_new_tokens
+            eos[j] = -1 if req.eos_id is None else req.eos_id
+            has_eos[j] = req.eos_id is not None
         self.group.record(
             "admit_packed_paged" if self.page_pool is not None
             else "admit_packed", self._params_sig, self._cache_sig,
             signature(toks), self.max_len)
-        logits, many = self.model.prefill(
-            self.params, {"tokens": self._dev(toks)},
-            self.model.init_cache(n, self.max_len),
-            last_index=self._dev(last))
-        self._land(many, logits, batch)
+        self._admissions.load(toks, last, slot_ids, valid, lengths,
+                              remaining, eos, has_eos, self._pt)
+        first = self._run_admission(bucket)
+        if self._dev_state is not None:
+            # the first tokens surface in the next horizon's trace
+            for slot, req in batch:
+                self._bind(slot, req)
+        else:
+            first = first[:len(batch)].cpu().numpy()        # one sync
+            for j, (slot, req) in enumerate(batch):
+                self._bind(slot, req, int(first[j]))
+            self.stats["host_syncs"] += 1
         self.stats["prefills"] += 1
         self.stats["prefilled_requests"] += len(batch)
+
+    def _run_admission(self, bucket: int):
+        """The loaded admission round (its graph on the card); -> each
+        row's first token (the static buffer)."""
+        return self._admissions(bucket)
 
     def _retire(self, slot: int):
         req = self._slot_req[slot]
@@ -847,12 +1055,7 @@ class ContinuousEngine:
         resumes at the payload's position, budget and next token.  No
         forward pass runs."""
         h = req.kv
-        self._record_merge(h.cache)
-        if self.page_pool is not None:
-            _scatter_slots_paged(self._cache, h.cache, [slot], [h.pos],
-                                 self._pt, self.page_pool.total_pages)
-        else:
-            _scatter_slots(self._cache, h.cache, [slot], [h.pos])
+        self._merge(h.cache, slot, h.pos)
         req.output = list(h.emitted)
         self._bind(slot, req, h.next_tok)
         # _bind assumed a fresh prefill; the payload says where the
@@ -979,8 +1182,8 @@ class ContinuousEngine:
         future specializations count in that group (``compile_count()``
         reads the new group's count) and its future captures go to the
         group's graph memory pool, while the graphs it has keep running
-        from the pool they were captured in, so ``graph_count()`` does not
-        move.  No path touches the cache or the decode state, so the
+        from the pool they were captured in, so neither ``graph_count()``
+        nor ``admission_graph_count()`` moves.  No path touches the cache or the decode state, so the
         tokens do not change."""
         changed = False
         if slot_level is not None and int(slot_level) != self.pool.level:
@@ -1002,8 +1205,9 @@ class ContinuousEngine:
             self.group = shared_exec_group(
                 self.cfg, self.use_ragged_kernel, self.exec_group,
                 self.device)
-            if self._horizons is not None:
-                self._horizons.group = self.group
+            for graphs in (self._horizons, self._admissions):
+                if graphs is not None:
+                    graphs.group = self.group
             changed = True
         if changed:
             self.stats["regroups"] += 1
@@ -1061,6 +1265,13 @@ class ContinuousEngine:
                 self.model, self.params, self._cache, self._dev_state,
                 horizon=self.decode_horizon, max_len=self.max_len,
                 use_ragged_kernel=self.use_ragged_kernel, group=self.group)
+        if self.prefill_buckets:
+            self._admissions = AdmissionGraphs(
+                self.model, self.params, self._cache, self._dev_state,
+                buckets=self.prefill_buckets, max_len=self.max_len,
+                n_pages=(self.page_pool.total_pages
+                         if self.page_pool is not None else 0),
+                group=self.group)
         self._started = True
 
     @property
@@ -1139,9 +1350,13 @@ class ContinuousEngine:
             return []
         self.group.record("decode", self._params_sig, self._cache_sig,
                           (self.n_slots,))
-        logits, self._cache = self.model.decode_step(
+        logits, cache = self.model.decode_step(
             self.params, self._cache, self._dev(self._next_tok),
             use_ragged_kernel=self.use_ragged_kernel)
+        # the step writes the stack in place and hands back a new idx:
+        # copy it into the engine's, whose address the admission graphs
+        # hold
+        self._cache["idx"].copy_(cache["idx"])
         self.stats["decode_steps"] += 1
         self.stats["decode_calls"] += 1
         self.stats["host_syncs"] += 1

@@ -1274,6 +1274,164 @@ def test_shared_pool_interleaved_replays_equal_each_engines_eager_body(
     assert _outputs(b.done) == eager["b"]
 
 
+# ----- admission graphs: one CUDA graph per prefill bucket --------------------
+
+ADMISSION_CASES = [
+    pytest.param("qwen2-0.5b", False, id="qwen2-contiguous"),
+    pytest.param("qwen2-0.5b", True, id="qwen2-pages4"),
+    pytest.param("granite-moe-1b-a400m", False, id="granite-contiguous"),
+    pytest.param("granite-moe-1b-a400m", True, id="granite-pages4")]
+
+
+def _admission_buffers(eng):
+    """Every static buffer an admission round reads or writes: the
+    cache, ``idx``, ``pt``, the device state and the round's own inputs
+    and first tokens (``AdmissionGraphs``)."""
+    from repro_torch.models.params import tree_leaves
+    cache, adm = eng._cache, eng._admissions
+    out = (tree_leaves(cache["stack"]) + [cache["idx"]]
+           + ([cache["pt"]] if "pt" in cache else [])
+           + list((eng._dev_state or {}).values())
+           + [adm.tokens[b] for b in sorted(adm.tokens)]
+           + [adm.rows, adm.first] + ([adm.pt] if adm.pt is not None
+                                      else []))
+    return out
+
+
+def _rounds_counted(eng, rounds):
+    """Wrap ``eng._run_admission`` so that ``rounds`` receives, per
+    round, its bucket and the flash launches it added."""
+    run = eng._run_admission
+
+    def counted(bucket):
+        before = ops.LAUNCHES["flash_attention"]
+        first = run(bucket)
+        rounds.append((bucket, ops.LAUNCHES["flash_attention"] - before))
+        return first
+
+    eng._run_admission = counted
+
+
+@pytest.mark.parametrize("arch,pages", ADMISSION_CASES)
+def test_admission_graphs_equal_the_eager_body_bit_for_bit(cuda, arch,
+                                                           pages):
+    """Two engines on the same requests, one admitting through its
+    bucket graphs, the other through the eager body: after every
+    admission round and every horizon, every cache leaf, ``idx``, ``pt``
+    and state tensor of the two are equal bit for bit.  The graph engine
+    holds one admission graph per bucket used; each round adds the flash
+    kernel's launches once per attention layer."""
+    engines = [_horizon_engine(arch, pages, horizon=4) for _ in range(2)]
+    rounds = {}
+    for eng, eager in zip(engines, (False, True)):
+        eng.start()
+        _submit_requests(eng)
+        if eager:
+            eng._run_admission = eng._admissions.body
+        rounds[eager] = []
+        _rounds_counted(eng, rounds[eager])
+    graph, eager = engines
+
+    def state(eng):
+        from repro_torch.models.params import tree_leaves
+        cache = eng._cache
+        return (tree_leaves(cache["stack"]) + [cache["idx"]]
+                + ([cache["pt"]] if "pt" in cache else [])
+                + list(eng._dev_state.values()))
+
+    while graph.has_work or eager.has_work:
+        for eng in engines:
+            eng.admit_waiting()
+        torch.cuda.synchronize()
+        for a, b in zip(state(graph), state(eager)):
+            assert torch.equal(a, b)
+        for eng in engines:
+            eng.step()
+        for a, b in zip(state(graph), state(eager)):
+            assert torch.equal(a, b)
+    assert _outputs(graph.done) == _outputs(eager.done)
+    assert rounds[False] == rounds[True] and len(rounds[False]) >= 3
+    buckets = {b for b, _ in rounds[False]}
+    assert graph.admission_graph_count() == len(buckets) >= 2
+    assert eager.admission_graph_count() == 0
+    layers = graph.cfg.n_layers
+    assert all(n == layers for _, n in rounds[False])
+
+
+@pytest.mark.parametrize("arch,pages", ADMISSION_CASES)
+def test_admission_graph_count_holds_on_a_second_run(cuda, arch, pages):
+    """A second run of the same requests on the same engine uses the
+    same buckets: it captures no admission graph, replays the ones it
+    has, and serves the first run's tokens."""
+    eng = _horizon_engine(arch, pages, horizon=4)
+    eng.start()
+    runs = []
+    for _ in range(2):
+        n_done = len(eng.done)
+        _submit_requests(eng)
+        runs.append(_outputs(eng.run()[n_done:]))
+        graphs = dict(eng._admissions.graphs)
+        if len(runs) == 1:
+            first = graphs
+    assert runs[0] == runs[1]
+    assert graphs.keys() == first.keys() and all(
+        graphs[b] is first[b] for b in graphs)
+    assert 1 <= eng.admission_graph_count() <= len(eng.prefill_buckets)
+
+
+@pytest.mark.parametrize("arch,pages", ADMISSION_CASES)
+def test_admission_buffers_survive_handoff_export_evacuate_regroup(
+        cuda, arch, pages):
+    """An engine with admission and horizon graphs takes half its
+    requests as KV payloads, regroups (slots, pages, exec group), exports
+    a live session and evacuates, then serves every request afresh:
+    every static buffer an admission round touches keeps its address
+    throughout, the graphs it had are kept, and the tokens equal an
+    engine's whose admission runs the eager body."""
+    runs = {}
+    for eager in (False, True):
+        eng = _graph_or_eager(arch, pages, eager=False)
+        if eager:
+            eng._run_admission = eng._admissions.body
+        prefill = _horizon_engine(arch, pages, horizon=4)
+        requests = _requests()
+        for req in requests[: len(requests) // 2]:
+            req.kv = prefill.prefill_only(req)
+        for req in requests:
+            eng.submit(req)
+        fixed = [t.data_ptr() for t in _admission_buffers(eng)]
+
+        def same():
+            return [t.data_ptr() for t in _admission_buffers(eng)] == fixed
+
+        eng.admit_waiting()
+        eng.step()
+        assert same()
+        graphs = dict(eng._admissions.graphs)
+        assert eng.regroup(slot_level=2, exec_group=1,
+                           page_level=2 if eng.paged else None)
+        assert same() and eng._admissions.group is eng.group
+        while not (eng.n_active and eng.queue):
+            eng.admit_waiting()
+            eng.step()
+        slot = next(s for s, r in enumerate(eng._slot_req) if r is not None)
+        handoff = eng.export_session(slot)
+        live, queued = eng.evacuate()
+        assert same()
+        assert all(eng._admissions.graphs[b] is g for b, g in graphs.items())
+        n_done = len(eng.done)
+        for req in _requests():
+            eng.submit(req)
+        again = _outputs(eng.run()[n_done:])
+        torch.cuda.synchronize()
+        assert same()
+        runs[eager] = (handoff.next_tok, [list(r.output) for r in live],
+                       again)
+        if not eager:
+            assert eng.admission_graph_count() >= 1
+    assert runs[False] == runs[True]
+
+
 # ----- training -------------------------------------------------------------
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],

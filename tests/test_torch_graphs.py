@@ -9,8 +9,10 @@ recurrentgemma-2b smoke configs, contiguous and paged (recurrentgemma
 keeps its contiguous rolling cache under a paged plan), at K in {2, 4},
 and hold it to what capture depends on and to the reference:
 
-* every cache leaf, ``idx``, ``pt``, each device-state tensor and each
-  leaf of the static trace keeps its ``data_ptr()`` throughout;
+* every cache leaf, ``idx``, ``pt``, each device-state tensor, each
+  leaf of the static trace and, where the engine admits in buckets,
+  each static input and output of its admission round
+  (``AdmissionGraphs``) keeps its ``data_ptr()`` throughout;
 * the tokens, admission order, admission steps and retirement steps equal
   a live ``repro`` run at fp32 (the ``_reference`` helpers of
   ``test_torch_engine.py`` and ``test_torch_recurrent_engine.py``);
@@ -47,17 +49,26 @@ from tests import test_torch_recurrent_engine as rgemma
 
 def _addresses(eng):
     """{buffer name: data_ptr()} of every static buffer the horizon body
-    reads or writes."""
+    or the admission body reads or writes."""
     cache = eng._cache
     out = {f"stack[{i}]": t.data_ptr()
            for i, t in enumerate(tree_leaves(cache["stack"]))}
     out["idx"] = cache["idx"].data_ptr()
     if "pt" in cache:
         out["pt"] = cache["pt"].data_ptr()
-    out.update({f"state.{k}": t.data_ptr()
-                for k, t in eng._dev_state.items()})
-    out.update({f"trace.{k}": t.data_ptr()
-                for k, t in eng._horizons.trace.items()})
+    if eng._horizons is not None:
+        out.update({f"state.{k}": t.data_ptr()
+                    for k, t in eng._dev_state.items()})
+        out.update({f"trace.{k}": t.data_ptr()
+                    for k, t in eng._horizons.trace.items()})
+    admissions = eng._admissions
+    if admissions is not None:
+        out.update({f"admission.tokens[{b}]": t.data_ptr()
+                    for b, t in admissions.tokens.items()})
+        out["admission.rows"] = admissions.rows.data_ptr()
+        out["admission.first"] = admissions.first.data_ptr()
+        if admissions.pt is not None:
+            out["admission.pt"] = admissions.pt.data_ptr()
     return out
 
 

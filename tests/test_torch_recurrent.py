@@ -277,7 +277,7 @@ def _prefill_rows(m, params, toks_rows, max_len, torch_side):
     """Per-slot cache with each row prefilled alone at its exact length
     (the engine's admission), as the reference's _scatter_slot does."""
     if torch_side:
-        from repro_torch.serve.engine import _scatter_slots
+        from repro_torch.serve.engine import _scatter_slot
         cache = m.init_cache(len(toks_rows), max_len, per_slot=True)
         firsts = []
         for slot, toks in enumerate(toks_rows):
@@ -285,7 +285,7 @@ def _prefill_rows(m, params, toks_rows, max_len, torch_side):
             logits, one = m.prefill(params,
                                     {"tokens": torch.as_tensor(toks[None])},
                                     one)
-            _scatter_slots(cache, one, [slot], [len(toks)])
+            _scatter_slot(cache, one, slot, len(toks))
             firsts.append(logits[0].numpy())
         return cache, np.stack(firsts)
     from repro.serve.engine import _scatter_slot
