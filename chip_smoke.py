@@ -12,8 +12,10 @@ Phases (any failure exits non-zero, without the final result line):
    nvcc each, all started together, timed, with ptxas' register and
    spill report for each instantiation and, for the flash kernel, its
    shared memory and its count of tensor-core (``HMMA``) instructions
-   from ``cuobjdump -sass``: each body must be found at all four head_dim
-   templates, the bf16 body must have some at each, and none may spill;
+   from ``cuobjdump -sass``: each body (the SIMT body in fp32 and in bf16,
+   the tensor-core body in bf16) must be found at all four head_dim
+   templates, the tensor-core body must have some at each, and none may
+   spill;
    each decode library must hold its five split instantiations (the SIMT
    body in fp32 and bf16 with 16-byte and element loads, the bf16
    tensor-core body at dh up to 64) and its two combine
@@ -168,10 +170,11 @@ Phases (any failure exits non-zero, without the final result line):
    every token; deepseek-moe-16b at full width cut to its first 4
    layers (dense layer 0, then 3 MoE layers of 2 shared + 64 routed
    experts, top-6), 8 requests of 32 tokens, contiguous = paged in
-   bf16; xlstm-1.3b at full width and depth (42 mLSTM and 6 sLSTM
-   layers) on prompts of 64 to 960 tokens (the per-token scan, the
-   chunkwise core at 512 and 768, the bf16 stream without chunking at
-   960), exact-length admission, 32 new tokens, bf16, then fp32 graphs
+   bf16; xlstm-1.3b at full width cut to its first 8 of 48 layers (one
+   period of its 7:1 pattern: 7 mLSTM and 1 sLSTM layer; at full depth
+   its three runs took most of this phase and left phase 18 no room) on
+   prompts of 64 to 960 tokens (the per-token scan, the chunkwise core
+   at 512 and 768, the bf16 stream without chunking at 960), exact-length admission, 32 new tokens, bf16, then fp32 graphs
    = eager body, no kernel launch; every run gated on each request's
    tokens and on its launches (ragged or paged = layers x steps
    launched, flash = attention layers x prefills); tok/s,
@@ -228,6 +231,25 @@ Phases (any failure exits non-zero, without the final result line):
    of its rolling caches), gated on finite logits and no launch.  ms a
    step beside the roofline's terms; then each launched key held against
    its plain version (phase 16's mechanism, added to phase 12's cases).
+18. (run after 15 and before 16, whose per-key check holds its keys) the
+   six examples, ``examples/<name>_torch.py``: each ``main`` at its own
+   defaults on the card (smoke configs; the two multi-rank scripts on a
+   one-process NCCL group of their own), then serve_batched's body at
+   fp32 on the qwen2-0.5b smoke config (the three presets' tokens must
+   equal the wave's, every request), at qwen2-0.5b's full width in bf16
+   (K = 1: ``Model.decode_step`` eagerly) and with ``--arch
+   recurrentgemma-2b`` (the RG-LRU kernel), and quickstart's and
+   train_endpoint_categories' bodies at smollm-360m's full width (20
+   steps, and 5 a category: the defaults' 60 and 20 are mostly 4.3 GB
+   checkpoints).  Gates: no script raises; the three categories' final
+   losses bit for bit equal; the stencil's gathered grid = a plain single-tensor stencil on
+   the card within ``STENCIL_REL_TOL``, with 2 halo messages per rank
+   and step; ragged_decode, flash_attention and rglru_scan each
+   launched.  Each run's wall seconds, serve_batched's tok/s, the median
+   ms of a K = 1 decode step of qwen2-0.5b (4 slots) and of a train step
+   of smollm-360m at (8, 64) printed; every (kernel, dtype, shape)
+   key the runs launched (``SHAPE_LAUNCHES`` of both ops modules) joins
+   phase 16's per-key check.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
@@ -447,16 +469,21 @@ def build_kernels():
                                                    ctypes.c_int]
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         hmma = _hmma_counts(item["path"])
-        found, faults = {"simt": [], "mma": []}, []
+        # the bodies by the C launcher's dtype code: the SIMT body in fp32
+        # and in bf16 (what the tensor cores cannot take), the mma body
+        found, faults = {"simt": [], "mma": [], "simt bf16": []}, []
         for fn, r in sorted(_ptxas_report(item["ptxas"]).items()):
-            m = re.search(r"flash_attention_kernel_(simt|mma)I\w*?Li(\d+)E",
-                          fn)
+            m = re.search(
+                r"flash_attention_kernel_(simt|mma)I(\w*?)Li(\d+)E", fn)
             if not m:
                 continue
-            body, cap = m.group(1), int(m.group(2))
-            dtype = 1 if body == "mma" else 0
+            body, cap = m.group(1), int(m.group(3))
+            if body == "simt" and "bfloat16" in m.group(2):
+                body = "simt bf16"
+            dtype = list(found).index(body)
             log(f"    flash_attention {body} dh<={cap} "
-                f"({'bf16' if dtype else 'fp32'}): {r.get('registers')} "
+                f"({'fp32' if dtype == 0 else 'bf16'}): "
+                f"{r.get('registers')} "
                 f"registers, spill stores {r.get('spill_stores')} / loads "
                 f"{r.get('spill_loads')} bytes, "
                 f"{lib.flash_attention_smem_bytes(cap, dtype)} bytes of "
@@ -697,6 +724,10 @@ FLASH_CASES = [
     (1, 257, 100, 14, 2, 64, False, 0, 0.0),
     (8, 512, 512, 16, 8, 64, True, 0, 0.0),        # granite's admission
     (8, 512, 512, 16, 16, 128, True, 0, 0.0),      # deepseek's admission
+    # smollm-360m's smoke heads (dh 20: bf16 on the SIMT body)
+    (2, 40, 40, 3, 1, 20, True, 0, 0.0),
+    (1, 300, 300, 3, 1, 20, True, 0, 0.0),
+    (2, 65, 100, 3, 1, 12, False, 0, 0.0),
 ]
 
 
@@ -2722,6 +2753,9 @@ FAMILY_REQUESTS, FAMILY_MAX_NEW = 8, 32
 #: stream), the chunkwise core at 512 and 768 (the bf16 stream), and 960
 #: on the bf16 stream without chunking (960 + 32 < max_len 1024)
 XLSTM_PROMPTS = (64, 100, 200, 300, 450, 512, 768, 960)
+#: xlstm-1.3b at full width, cut to its first 8 layers: one period of its
+#: 7:1 pattern (7 mLSTM, then 1 sLSTM layer)
+XLSTM_LAYERS = 8
 
 
 def _family_run(name, cfg, params, prompts, pages, max_new, card, bad,
@@ -2821,13 +2855,16 @@ def _serve_moe(cfg, n_requests, max_new, card, bad, fp32_graph_vs_eager):
 
 
 def _serve_xlstm(card, bad):
-    """xlstm-1.3b at full width and depth: exact-length admission of the
-    8 prompts (per-token scan, chunkwise core, the bf16 switch), 32 new
-    tokens each; bf16 through graphs, then fp32 through graphs and the
-    eager body, equal on every token.  No kernel launches: the stack has
-    no attention."""
+    """xlstm-1.3b at full width cut to XLSTM_LAYERS layers: exact-length
+    admission of the 8 prompts (per-token scan, chunkwise core, the bf16
+    switch), 32 new tokens each; bf16 through graphs, then fp32 through
+    graphs and the eager body, equal on every token.  No kernel launches:
+    the stack has no attention."""
     from repro_torch.configs import get_config
-    cfg = get_config("xlstm-1.3b")
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"),
+                              n_layers=XLSTM_LAYERS)
+    log(f"xlstm-1.3b: full width, cut to its first {XLSTM_LAYERS} of 48 "
+        f"layers (7 mLSTM, then 1 sLSTM)")
     params = _family_weights(cfg, card)
     prompts = _rg_prompts(cfg.vocab, XLSTM_PROMPTS, seed=10)
     budgets = [FAMILY_MAX_NEW] * len(prompts)
@@ -3393,10 +3430,11 @@ def _attn_layers(cfg) -> int:
 
 
 def read_shape_counts() -> dict:
-    """The attention kernels' launches since the last ``reset_counts()``,
-    by (kernel, dtype, shape): ``ops.SHAPE_LAUNCHES``."""
+    """The kernels' launches since the last ``reset_counts()``, by
+    (kernel, dtype, shape): both ops modules' ``SHAPE_LAUNCHES``."""
     from repro_torch.kernels.flash_attention import ops
-    return dict(ops.SHAPE_LAUNCHES)
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    return {**ops.SHAPE_LAUNCHES, **rglru_ops.SHAPE_LAUNCHES}
 
 
 def _collect(launched: dict, label: str, cross=None,
@@ -3413,7 +3451,8 @@ def _collect(launched: dict, label: str, cross=None,
         raise AssertionError(f"{label}: cross and self caches of one "
                              f"length {cross[0]}")
     for key, n in read_shape_counts().items():
-        full = key[0] != "flash_attention" and (full_rows or (
+        decode = key[0] in ("ragged_decode", "paged_decode")
+        full = decode and (full_rows or (
             cross is not None and key[2][1] == cross[0]))
         entry = launched.setdefault(key, [0, set(), True])
         entry[0] += n
@@ -3799,6 +3838,44 @@ SHAPE_CASE_CACHES, SHAPE_CASE_INPUTS = 24, 4
 SHAPE_CASE_BYTES = 16 * 2 ** 30
 
 
+def _rglru_shape_case(gen, shape, dtype, launches, runs):
+    """The RG-LRU scan at one launched (B, T, C) and dtype (a's, or
+    "a's/x's"): SHAPE_CASE_INPUTS inputs from ``_rglru_inputs``, each
+    against the plain version, then timed eagerly beside it."""
+    import torch
+    from repro_torch.kernels.rglru import ops, ref
+    b, t, c = shape
+    a_dt, x_dt = (getattr(torch, d) for d in (dtype.split("/") * 2)[:2])
+    inputs = []
+    for _ in range(SHAPE_CASE_INPUTS):
+        a, x = _rglru_inputs(gen, b, t, c, torch.float32)
+        inputs.append((a.to(a_dt), x.to(x_dt)))
+    err, tol = 0.0, float("inf")
+    for a, x in inputs:
+        expect = ref.rglru_scan_ref(a, x)
+        e = (ops.rglru_scan(a, x).float() - expect.float()).abs().max().item()
+        err, tol = max(err, e), min(tol, rglru_tolerance(expect))
+        if not e <= rglru_tolerance(expect):
+            raise AssertionError(f"rglru_scan at {shape} {dtype}: err {e} "
+                                 f"> {rglru_tolerance(expect)}")
+    ms = _time_ms(lambda i: ops.rglru_scan(*inputs[i]), len(inputs))
+    plain_ms = _time_ms(lambda i: ref.rglru_scan_ref(*inputs[i]),
+                        len(inputs), iters=2)
+    io_bytes = b * t * c * (a_dt.itemsize + 2 * x_dt.itemsize)
+    t_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * t * c / FP32_FLOPS_PER_S * 1e3
+    case = dict(shape=f"B={b}, T={t}, C={c} {dtype} ({runs})",
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+    log(f"rglru_scan at {case['shape']}: {ms * 1e3:.2f} us/call, bound "
+        f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}), plain "
+        f"{plain_ms * 1e3:.1f} us, max abs err {err:.3e} (tolerance "
+        f"{tol:.3e} or more); launches {launches}; library: null")
+    return case
+
+
 def _shape_case(key, launches, runs, cross, gen):
     """The case of one (kernel, dtype, shape) key that phase 16's runs
     launched ``launches`` times: the kernel at that signature against its
@@ -3810,7 +3887,9 @@ def _shape_case(key, launches, runs, cross, gen):
     itself.  -> case dict."""
     name, dtype, shape = key
     reset_counts()
-    if name == "flash_attention":
+    if name == "rglru_scan":
+        case = _rglru_shape_case(gen, shape, dtype, launches, runs)
+    elif name == "flash_attention":
         b, sq, sk, hq, hkv, dh, causal, window, softcap = shape
         if softcap:
             raise AssertionError(f"no case for softcap {softcap}: {key}")
@@ -3838,18 +3917,21 @@ def _shape_case(key, launches, runs, cross, gen):
     return dict(case, key=[name, dtype, list(shape)])
 
 
-def serve_encdec_embeds(card: str) -> dict:
+def serve_encdec_embeds(card: str, earlier=None) -> dict:
     """Phase 16: seamless-m4t-large-v2 at full width and depth (serve,
     the fp32 chain, train), qwen2-vl-72b at full width cut to VL_LAYERS
     layers (contiguous and paged), the smoke configs card = CPU; then one
-    case per (kernel, dtype, shape) key those runs launched, each checked
-    against its plain version and timed beside SDPA, its ``launches``
-    the key's count.  -> the runs' numbers and the cases for phase 12's
-    line."""
+    case per (kernel, dtype, shape) key those runs and the ``earlier``
+    phase's (``_collect``'s dict: phase 18's examples) launched, each
+    checked against its plain version and timed beside SDPA, its
+    ``launches`` the key's count.  -> the runs' numbers and the cases for
+    phase 12's line."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    bad, launched = [], {}
+    bad = []
+    launched = {key: [n, set(runs), full]
+                for key, (n, runs, full) in (earlier or {}).items()}
     _free_card()
     cfg = get_config("seamless-m4t-large-v2")
     model = Model(cfg, "cuda")
@@ -3879,7 +3961,8 @@ def serve_encdec_embeds(card: str) -> dict:
             missing.append(key)
         _free_card()
     n_bf16 = sum(k[1] == "bfloat16" for k in launched)
-    log(f"phase 16 launched {len(launched)} (kernel, dtype, shape) keys "
+    log(f"phases 16 and 18 launched {len(launched)} (kernel, dtype, shape) "
+        f"keys "
         f"({n_bf16} bf16, {len(launched) - n_bf16} fp32); held against "
         f"their plain versions: {len(cases)}; without a passing case: "
         f"{missing}")
@@ -3887,6 +3970,221 @@ def serve_encdec_embeds(card: str) -> dict:
         raise AssertionError(f"keys launched without a passing case: "
                              f"{missing}")
     return {"seamless": seamless, "qwen2-vl": vl, "cases": cases}
+
+
+# ----- phase 18 --------------------------------------------------------------
+
+#: the six examples (``examples/<name>_torch.py``), each run through its
+#: ``main`` at its own defaults
+EXAMPLES = ("quickstart", "serve_batched", "serve_fleet", "serve_adaptive",
+            "train_endpoint_categories", "stencil_endpoints")
+#: the stencil's limit against the plain single-tensor stencil, times
+#: max(1, max |plain|): fp32, the same sums in the same order
+STENCIL_REL_TOL = 1e-5
+#: the full-width (smollm-360m) runs of quickstart's body (steps, with a
+#: checkpoint at the last: 4.3 GB each) and of the categories' ddp body
+#: (steps a category): the defaults' 60 and 20 took 75 s each on a slow
+#: host, most of it in checkpoints
+FULL_QUICK_STEPS, FULL_DDP_STEPS = 20, 5
+
+
+def _example(name: str):
+    """``examples/<name>_torch.py`` loaded as a module."""
+    import importlib.util
+    path = ROOT / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _plain_stencil(grid, steps: int):
+    """The periodic 5-point stencil on one tensor, rolled on both axes."""
+    for _ in range(steps):
+        lap = (grid.roll(1, 0) + grid.roll(-1, 0) + grid.roll(1, 1)
+               + grid.roll(-1, 1) - 4 * grid)
+        grid = grid + 0.1 * lap
+    return grid
+
+
+def _k1_step_ms(cfg, params, rows: int = 4, max_len: int = 160,
+                prompt: int = 16, steps: int = 20) -> float:
+    """The median ms of ``Model.decode_step`` alone, eagerly over a
+    per-slot cache of ``rows`` slots, then the argmax read by the host
+    (one sync a step), after one untimed step: the call that
+    ``ContinuousEngine.step`` makes at K = 1, timed outside the engine
+    (no admission, no slot bookkeeping)."""
+    import statistics
+    import torch
+    from repro_torch.models import Model
+    model = Model(cfg, "cuda")
+    weights = model.prepare_params(params)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    toks = torch.randint(1, cfg.vocab, (rows, prompt), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    cache = model.init_cache(rows, max_len, per_slot=True)
+    logits, cache = model.prefill(weights, {"tokens": toks}, cache)
+    tok = logits.argmax(-1).int()
+    times = []
+    for _ in range(steps + 1):
+        _sync()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(weights, cache, tokens=tok)
+        tok = logits.argmax(-1).int()
+        tok.cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def _rates(rows: dict) -> str:
+    """serve_batched's rows as "name tok/s" pairs."""
+    return ", ".join(f"{name} {r['total'] / r['seconds']:.1f}"
+                     for name, r in rows.items())
+
+
+def _train_step_ms(cfg, steps: int = 10) -> float:
+    """The median ms of a train step at quickstart's shape ((8, 64) tokens
+    a step, its learning rate and warm-up; ``make_train_step`` on seed 0,
+    the first two steps left out), with no checkpoint."""
+    import statistics
+    import torch
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    model = Model(cfg, "cuda")
+    opt = AdamW(learning_rate=cosine_schedule(2e-3, 10, steps))
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=64, global_batch=8)
+    step = make_train_step(model, opt, remat=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    state, times = opt.init(params), []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch_at(i).items()}
+        _sync()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        float(metrics["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[2:])
+
+
+def run_examples(card: str) -> dict:
+    """Phase 18 (after 15, before 16, whose per-key check takes its
+    keys): each example's ``main`` at its defaults on the card, then
+    serve_batched's body at fp32 on the smoke config (the three presets'
+    tokens must equal the wave's), at qwen2-0.5b's full width (bf16) and
+    with ``--arch recurrentgemma-2b`` (the RG-LRU kernel), and
+    quickstart's and train_endpoint_categories' bodies at smollm-360m's
+    full width (FULL_QUICK_STEPS steps; FULL_DDP_STEPS a category);
+    besides, a K = 1 decode step of qwen2-0.5b and a train step of
+    smollm-360m timed alone.  Gates: no script raises; the categories'
+    losses bit for bit equal; the stencil = ``_plain_stencil`` on the card within
+    STENCIL_REL_TOL, with 2 halo messages per rank and step; each of
+    ragged_decode, flash_attention and rglru_scan launched.  Each run's
+    counts start at 0 and are read after it.  -> {"launched": keys by
+    ``_collect``, "launches": the runs' summed counts, "seconds": each
+    run's wall, and the rates}."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.train import join_group
+    from repro_torch.models import Model
+    if dist.is_initialized():
+        # the scripts join their own group (phase 15 destroys its one)
+        dist.destroy_process_group()
+    ex = {name: _example(name) for name in EXAMPLES}
+    launched, launches, seconds, bad = {}, {}, {}, []
+
+    def run(label, fn, *args):
+        _free_card()
+        reset_counts()
+        _sync()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync()
+        seconds[label] = time.perf_counter() - t0
+        _collect(launched, label)
+        for name, n in read_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"example {label}: {seconds[label]:.2f} s wall, launches "
+            f"{read_counts()}; on {card}")
+        return out
+
+    out = {name: run(f"{name} (defaults)", ex[name].main, [])
+           for name in EXAMPLES}
+    if len(set(out["train_endpoint_categories"].values())) != 1:
+        bad.append(f"categories' losses differ: "
+                   f"{out['train_endpoint_categories']}")
+    sten = out["stencil_endpoints"]
+    plain = _plain_stencil(ex["stencil_endpoints"].initial_grid().cuda(),
+                           ex["stencil_endpoints"].STEPS)
+    sten_err = (sten["grid"] - plain).abs().max().item()
+    sten_tol = STENCIL_REL_TOL * max(1.0, plain.abs().max().item())
+    log(f"stencil on {sten['ranks']} rank(s): max abs err vs the plain "
+        f"stencil on the card {sten_err:.3e} (limit {sten_tol:.3e}), "
+        f"{sten['messages_per_step']} halo messages per rank and step")
+    if not sten_err <= sten_tol or sten["messages_per_step"] != 2:
+        bad.append(f"stencil: err {sten_err} (limit {sten_tol}), "
+                   f"{sten['messages_per_step']} messages a step")
+
+    batched = ex["serve_batched"]
+    cfg32 = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                                compute_dtype="float32")
+    fp32 = run("serve_batched qwen2-0.5b smoke fp32", batched.run, cfg32,
+               "cuda")
+    differ = {p: len(r["tokens"]) - r["agree"] for p, r in fp32.items()
+              if p != "wave" and r["agree"] != len(r["tokens"])}
+    if differ:
+        bad.append(f"serve_batched fp32: presets differ from the wave "
+                   f"(requests): {differ}")
+    # the body's own weights (seed 0 on the CPU), drawn here so that the
+    # K = 1 step can be timed on them too
+    qwen2 = get_config("qwen2-0.5b")
+    params = Model(qwen2, "cuda").init(torch.Generator().manual_seed(0))
+    full = run("serve_batched qwen2-0.5b full width bf16", batched.run,
+               qwen2, "cuda", 12, 4, params)
+    step_ms = _k1_step_ms(qwen2, params)
+    del params
+    rg = run("serve_batched --arch recurrentgemma-2b", batched.main,
+             ["--arch", "recurrentgemma-2b"])
+    smollm = get_config("smollm-360m")
+    quick = run("quickstart smollm-360m full width", ex["quickstart"].run,
+                smollm, "cuda", FULL_QUICK_STEPS, FULL_QUICK_STEPS)
+    if not (_finite(*quick["losses"]) and len(quick["tokens"]) == 8):
+        bad.append(f"quickstart at full width: losses {quick['losses']}, "
+                   f"tokens {quick['tokens']}")
+    quick_ms = _train_step_ms(smollm)
+    join_group("cuda")
+    try:
+        cats = run("train_endpoint_categories smollm-360m full width",
+                   ex["train_endpoint_categories"].run, smollm, "cuda",
+                   FULL_DDP_STEPS)
+    finally:
+        dist.destroy_process_group()
+    if len(set(cats.values())) != 1:
+        bad.append(f"categories' losses differ at full width: {cats}")
+    missing = [k for k in ("ragged_decode", "flash_attention", "rglru_scan")
+               if not launches.get(k)]
+    if missing:
+        bad.append(f"not launched by the examples: {missing}")
+    log(f"phase 18: serve_batched tok/s (4 slots, K = 1, "
+        f"{len(full['wave']['tokens'])} requests): smoke bf16 "
+        f"{_rates(out['serve_batched'])}; smoke fp32 {_rates(fp32)}; "
+        f"qwen2-0.5b full width bf16 {_rates(full)}, {step_ms:.2f} ms a "
+        f"K = 1 decode step (4 slots, Model.decode_step alone, outside "
+        f"the engine, + the host's argmax); "
+        f"recurrentgemma-2b smoke {_rates(rg)}; smollm-360m full width: "
+        f"quickstart {quick['train_seconds']:.2f} s for "
+        f"{FULL_QUICK_STEPS} steps (2 checkpoints included), loss "
+        f"{quick['losses'][0]:.4f} -> {quick['losses'][-1]:.4f}, "
+        f"{quick_ms:.1f} ms a train step; categories' final losses {cats}; "
+        f"launches {launches}; {len(launched)} keys; on {card}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return dict(launched=launched, launches=launches, seconds=seconds,
+                full=full, step_ms=step_ms, quick_ms=quick_ms)
 
 
 # ----- phase 17 --------------------------------------------------------------
@@ -4230,9 +4528,12 @@ def main() -> int:
                        train_recurrentgemma, card)
     phase("smoke configs' train step at fp32: card vs CPU",
           train_smoke_card_vs_cpu, card)
+    examples = phase("the six examples through the port (phase 18)",
+                     run_examples, card)
     encdec = phase("encoder-decoder and embeddings input at full width: "
                    "seamless-m4t-large-v2, qwen2-vl-72b (8 layers)",
-                   serve_encdec_embeds, card)
+                   serve_encdec_embeds, card,
+                   examples["launched"] if examples else None)
     kernels = rg_kernel = flash = None
     if served is not None and long is not None:
         runs, prompts = served[:2]
@@ -4257,19 +4558,22 @@ def main() -> int:
             or surface is None or fleet is None or planner is None \
             or family is None or scan_grad is None or trained is None \
             or ddp is None or rg_trained is None or encdec is None \
-            or cells is None:
+            or cells is None or examples is None:
         log(f"FAILED phases: {failed}")
         return 1
-    # the kernels at phase 14's shapes and at every key phase 16 launched
-    # join their entries' cases
+    # the kernels at phase 14's shapes and at every key phases 16 and 18
+    # launched join their entries' cases; each entry also carries its
+    # launches on phase 18's path (the examples)
     for entry in kernels:
         entry["cases"] += [family["decode"][m][entry["name"]]
                            for m in family["decode"]]
     flash["cases"] += family["flash"]
-    for entry in kernels + [flash]:
+    for entry in kernels + [flash, rg_kernel]:
         entry["cases"] += [case for name, case in
                            encdec["cases"] + cells["cases"]
                            if name == entry["name"]]
+        entry["examples_launches"] = examples["launches"].get(
+            entry["name"], 0)
     # the scan's backward call: its launches on the training path
     rg_kernel["backward"] = dict(
         scan_grad, launches=rg_trained["backward_launches"])
@@ -4329,6 +4633,12 @@ def main() -> int:
         f"contiguous "
         f"{vl['tok_s']['contiguous']:.1f}, paged {vl['tok_s']['paged']:.1f} "
         f"tok/s, {vl['peak']:.2f} GiB; on {card}")
+    log("phase 18, wall s: " + "; ".join(
+        f"{name} {sec:.2f}" for name, sec in examples["seconds"].items())
+        + f"; qwen2-0.5b full width serve_batched tok/s (4 slots, K = 1) "
+        f"{_rates(examples['full'])}; {examples['step_ms']:.2f} ms a K = 1 "
+        f"decode step; smollm-360m "
+        f"{examples['quick_ms']:.1f} ms a train step; on {card}")
     dec, lng = cells["decode_32k"], cells["long_500k"]
     log(f"phase 17: dry run {cells['dryrun']['ok']} ok, "
         f"{cells['dryrun']['skipped']} skipped in "

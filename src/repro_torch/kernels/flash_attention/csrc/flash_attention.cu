@@ -64,7 +64,10 @@
 //   tokens).  256 threads each hold a 4 x 4 tile of scores and a
 //   4 x (DH / 16) tile of the accumulator, over fp32 copies of the q
 //   (scaled), k and v tiles in shared memory, one scalar shared-memory
-//   load for every two FMAs.
+//   load for every two FMAs.  The same body, instantiated for bf16 with
+//   element loads, takes the bf16 calls at a dh that is not a multiple of
+//   8, which the tensor-core body cannot (dtype code 2); it rounds to
+//   bf16 once, at the store.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,8 +84,14 @@ constexpr int kBK = 64;          // keys per tile
 constexpr int kRows = kBQ / 16;  // query rows per thread: ty + 16 * i
 constexpr int kCols = kBK / 16;  // keys per thread: tx + 16 * j
 
+typedef __nv_bfloat16 bf16;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 // max / sum over the 16 lanes (tx = 0..15) that share one query row; an
 // xor butterfly leaves the same value, bit for bit, in every lane
@@ -256,8 +265,6 @@ flash_attention_kernel_simt(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ----- bf16: tensor-core body -----------------------------------------------
-
-typedef __nv_bfloat16 bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -550,7 +557,7 @@ flash_attention_kernel_mma(const bf16* __restrict__ q,
 
 // ----- launch ---------------------------------------------------------------
 
-template <int DH>
+template <typename T, int DH>
 int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
                 int sq, int sk, int hq, int hkv, int dh, long long q_sb,
                 long long q_ss, long long q_sh, long long k_sb, long long k_ss,
@@ -558,7 +565,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
                 float scale, float softcap, int causal, int window,
                 void* stream) {
   if (b * hq > 65535) return (int)cudaErrorInvalidValue;   // grid.y
-  auto kernel = flash_attention_kernel_simt<float, DH>;
+  auto kernel = flash_attention_kernel_simt<T, DH>;
   const size_t smem = simt_smem_bytes(DH);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -567,9 +574,9 @@ int launch_simt(const void* q, const void* k, const void* v, void* out, int b,
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, sq, sk,
-      hq, hq / hkv, dh, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-      scale, softcap, causal, window);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, sq, sk, hq, hq / hkv,
+      dh, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+      softcap, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -598,14 +605,17 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
   return (int)cudaGetLastError();
 }
 
-// the body for dtype (0 = float32, 1 = bfloat16) at head_dim template DH
+// the body for dtype (0 = float32, 1 = bfloat16 on the tensor cores, 2 =
+// bfloat16 on the SIMT body) at head_dim template DH
 template <int DH>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
            int b, int sq, int sk, int hq, int hkv, int dh, long long q_sb,
            long long q_ss, long long q_sh, long long k_sb, long long k_ss,
            long long k_sh, long long v_sb, long long v_ss, long long v_sh,
            float scale, float softcap, int causal, int window, void* stream) {
-  auto fn = dtype == 0 ? launch_simt<DH> : launch_mma<DH>;
+  auto fn = dtype == 0   ? launch_simt<float, DH>
+            : dtype == 1 ? launch_mma<DH>
+                         : launch_simt<bf16, DH>;
   return fn(q, k, v, out, b, sq, sk, hq, hkv, dh, q_sb, q_ss, q_sh, k_sb,
             k_ss, k_sh, v_sb, v_ss, v_sh, scale, softcap, causal, window,
             stream);
@@ -618,12 +628,13 @@ extern "C" const char* kernel_error_string(int code) {
 }
 
 // Dynamic shared memory one block asks for at head_dim dh and dtype (0 =
-// float32, 1 = bfloat16); 0 if dh > 256.
+// float32, 1 = bfloat16 on the tensor cores, 2 = bfloat16 on the SIMT
+// body); 0 if dh > 256.
 extern "C" long long flash_attention_smem_bytes(int dh, int dtype) {
 #define FLASH_ATTENTION_SMEM(CAP)                                   \
   if (dh <= CAP)                                                  \
-    return (long long)(dtype == 0 ? simt_smem_bytes(CAP)          \
-                                  : MmaTile<CAP>::kSmemBytes);
+    return (long long)(dtype == 1 ? MmaTile<CAP>::kSmemBytes      \
+                                  : simt_smem_bytes(CAP));
   FLASH_ATTENTION_SMEM(32)
   FLASH_ATTENTION_SMEM(64)
   FLASH_ATTENTION_SMEM(128)
@@ -634,13 +645,14 @@ extern "C" long long flash_attention_smem_bytes(int dh, int dtype) {
 
 // q (B, Sq, Hq, dh), k / v (B, Sk, Hkv, dh) with the given element strides
 // (head_dim stride 1) -> out, a contiguous (B, Sq, Hq, dh).  causal: 0 or
-// 1; window: 0 = none.  dtype: 0 = float32, 1 = bfloat16 (then the
-// caller also guarantees dh % 8 == 0, every stride a multiple of 8 and
-// q / k / v 16-byte aligned).  Needs 1 <= dh <= 256, Sq >= 1, Sk >= 1,
-// Hq % Hkv == 0, and a grid.y within 65535: B * Hq at float32, Sq's query
-// tiles at bfloat16.  Launches on the calling thread's current device,
-// which the caller sets to the tensors' own.  Returns a cudaError_t
-// (0 = launched).
+// 1; window: 0 = none.  dtype: 0 = float32, 1 = bfloat16 on the tensor
+// cores (then the caller also guarantees dh % 8 == 0, every stride a
+// multiple of 8 and q / k / v 16-byte aligned), 2 = bfloat16 on the SIMT
+// body (any strides and alignment; the wrapper sends it dh % 8 != 0).  Needs 1 <= dh <= 256, Sq >= 1,
+// Sk >= 1, Hq % Hkv == 0, and a grid.y within 65535: B * Hq on the SIMT
+// body, Sq's query tiles on the tensor cores.  Launches on the calling
+// thread's current device, which the caller sets to the tensors' own.
+// Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int b, int sq, int sk, int hq,
                                int hkv, int dh, long long q_sb,
@@ -651,7 +663,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                float softcap, int causal, int window,
                                int dtype, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hq < 1 || hkv < 1 || hq % hkv ||
-      dh < 1 || (dtype != 0 && dtype != 1))
+      dh < 1 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
 #define FLASH_ATTENTION_CASE(CAP)                                             \
   if (dh <= CAP)                                                            \

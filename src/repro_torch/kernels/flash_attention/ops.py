@@ -280,9 +280,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_block: int = 1024):
     """Prefill attention.  q: (B, Sq, Hq, dh); k/v: (B, Sk, Hkv, dh) ->
     (B, Sq, Hq, dh) in q's dtype, contiguous.  Any Sq, Sk >= 1; q, k and
-    v may be strided views with a contiguous head_dim (in bf16, which runs
-    on the tensor cores, with dh and every stride a multiple of 8 and
-    16-byte aligned data: the views of a fused projection are).
+    v may be strided views with a contiguous head_dim.  bf16 at a dh
+    that is a multiple of 8 runs on the tensor cores, which also need
+    every stride a multiple of 8 and 16-byte aligned data (the views of a
+    fused projection are) or raise; bf16 at any other dh (20, say) runs
+    on the SIMT body with element loads, at any strides.
     ``q_block`` and ``kv_block`` are the reference's tiling; the result
     does not depend on them, and the kernel keeps its own tiles.  Forward
     only: on the card, under grad mode, an input that requires grad
@@ -328,20 +330,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     # a dimension of size 1 is never stepped over: its stride is 0 here
     strides = [s if n > 1 else 0 for t in (q, k, v)
                for n, s in zip(t.shape[:3], t.stride()[:3])]
-    if q.dtype == torch.bfloat16 and (
-            dh % 8 or any(s % 8 for s in strides)
+    body = _DTYPES[q.dtype]
+    if q.dtype == torch.bfloat16 and dh % 8:
+        body = 2        # the SIMT body in bf16: dh alone decides, as the key
+    elif q.dtype == torch.bfloat16 and (
+            any(s % 8 for s in strides)
             or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("flash_attention: the bf16 kernel copies rows in "
-                         "16-byte pieces; it needs dh % 8 == 0, strides "
-                         "that are multiples of 8 and 16-byte aligned "
-                         f"q/k/v (dh {dh}, strides {strides})")
+        raise ValueError("flash_attention: the bf16 tensor-core body "
+                         "copies rows in 16-byte pieces; at dh % 8 == 0 it "
+                         "needs strides that are multiples of 8 and "
+                         f"16-byte aligned q/k/v (dh {dh}, strides "
+                         f"{strides})")
     lib = build.load("flash_attention")
     out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):       # the launch uses the current device
         code = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             sk, hq, hkv, dh, *strides, dh ** -0.5, float(softcap),
-            int(bool(causal)), int(window), _DTYPES[q.dtype],
+            int(bool(causal)), int(window), body,
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention", code)
     _count("flash_attention", q.dtype, (b, sq, sk, hq, hkv, dh,

@@ -9,7 +9,9 @@ each chunk to its product of ``a`` and its end state, pass 2 folds the
 chunks before each into its carry and walks it.  For a CPU tensor it runs
 the plain PyTorch version (``ref.py``), and so for a meta tensor (shapes
 with no data: the dry run).  Launches are counted in
-``LAUNCHES``: one per kernel call, though a call is two CUDA launches.
+``LAUNCHES``: one per kernel call, though a call is two CUDA launches;
+``SHAPE_LAUNCHES`` counts the same launches by the signature each ran
+at.
 
 Under grad mode, with an input that requires grad, the scan runs as an
 ``autograd.Function`` (``_ScanFn``): the gradient of ``h_t = a_t
@@ -23,6 +25,8 @@ gradient.  On CPU tensors both directions run ``ref.py``.
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -34,6 +38,9 @@ from repro_torch.kernels.rglru.ref import rglru_scan_ref
 LAUNCHES = {"rglru_scan": 0}
 #: of those, the launches made by ``scan_backward``
 BACKWARD_LAUNCHES = {"scan_backward": 0}
+#: the same launches keyed by ("rglru_scan", dtype, (B, T, C)): dtype is
+#: a's, or "a's/x's" where they differ
+SHAPE_LAUNCHES: Dict[Tuple[str, str, tuple], int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the H100's SMs, and the blocks per SM the chunk plan aims for
@@ -53,6 +60,7 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCHES, BACKWARD_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 def scan_chunks(b: int, t: int, c: int):
@@ -148,6 +156,10 @@ def _scan(a, x, backward: bool = False):
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "rglru_scan", code)
     LAUNCHES["rglru_scan"] += 1
+    dtypes = [str(v.dtype).removeprefix("torch.") for v in (a, x)]
+    key = ("rglru_scan", dtypes[0] if dtypes[0] == dtypes[1]
+           else "/".join(dtypes), (b, t, c))
+    SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
     if backward:
         BACKWARD_LAUNCHES["scan_backward"] += 1
     return out

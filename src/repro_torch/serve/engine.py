@@ -206,7 +206,7 @@ _TRACE = (("tok", torch.int32), ("live", torch.bool),
 #: which a graph's replay does not touch (``SHAPE_LAUNCHES`` gains a key
 #: at a signature's first launch)
 _LAUNCH_COUNTERS = (attention_ops.LAUNCHES, attention_ops.SHAPE_LAUNCHES,
-                    rglru_ops.LAUNCHES)
+                    rglru_ops.LAUNCHES, rglru_ops.SHAPE_LAUNCHES)
 #: one capture stream per device, shared by every engine's graphs:
 #: PyTorch keeps a cuBLAS workspace (32 MiB on an H100) for each stream
 #: that ran a matmul until the process ends, so a stream per engine

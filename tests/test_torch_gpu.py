@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.kernels.rglru import ref as rglru_ref
 from repro_torch.models import Model
+from test_torch_isolation import EXAMPLES, load_example
 
 pytestmark = pytest.mark.gpu
 
@@ -760,15 +761,13 @@ def test_flash_wrapper_counts_launches_and_rejects_bad_inputs(cuda):
 
 
 def test_flash_bf16_wrapper_rejects_what_16_byte_copies_cannot_take(cuda):
-    """The bf16 kernel copies rows in 16-byte pieces: dh, the strides and
-    the data must allow it, or the wrapper raises before any launch."""
+    """The bf16 tensor-core body copies rows in 16-byte pieces: at a dh
+    that is a multiple of 8, the strides and the data must allow it, or
+    the wrapper raises before any launch."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     q = _rand(gen, (2, 9, 4, 16), torch.bfloat16)
     k = _rand(gen, (2, 9, 2, 16), torch.bfloat16)
     ops.reset_launch_counts()
-    with pytest.raises(ValueError, match="16-byte"):      # dh % 8
-        ops.flash_attention(q[..., :12].contiguous(),
-                            k[..., :12].contiguous(), k[..., :12].contiguous())
     with pytest.raises(ValueError, match="16-byte"):      # row stride 20
         wide = _rand(gen, (2, 9, 4, 20), torch.bfloat16)
         ops.flash_attention(wide[..., :16], k, k)
@@ -787,6 +786,30 @@ def test_flash_bf16_wrapper_rejects_what_16_byte_copies_cannot_take(cuda):
     expect = ref.flash_attention_ref(q1, k1, v1)
     _assert_within_tolerance(out, expect)
     _assert_rows_within_tolerance(out, expect)
+
+
+def test_flash_bf16_wrapper_runs_dh_not_a_multiple_of_8_on_the_simt_body(
+        cuda):
+    """bf16 at a dh the 16-byte copies cannot take (12, smollm-360m's
+    smoke dh 20) runs on the SIMT body with element loads, contiguous or
+    as the strided views of a fused projection, within the bf16 limit of
+    the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q = _rand(gen, (2, 9, 4, 12), torch.bfloat16)
+    k = _rand(gen, (2, 9, 2, 12), torch.bfloat16)
+    qkv = _rand(gen, (2, 9, 8, 20), torch.bfloat16)
+    wide = _rand(gen, (2, 9, 4, 20), torch.bfloat16)
+    cases = [(q, k, k),                                          # dh 12
+             (wide, qkv[:, :, 4:6], qkv[:, :, 6:]),              # dh 20
+             (qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])]     # views
+    ops.reset_launch_counts()
+    for qc, kc, vc in cases:
+        out = ops.flash_attention(qc, kc, vc)
+        expect = ref.flash_attention_ref(qc, kc, vc)
+        assert out.dtype == torch.bfloat16 and out.shape == qc.shape
+        _assert_within_tolerance(out, expect)
+        _assert_rows_within_tolerance(out, expect)
+    assert ops.LAUNCHES["flash_attention"] == len(cases)
 
 
 def test_flash_grid_limit_is_the_launching_bodys(cuda):
@@ -1692,3 +1715,52 @@ def test_lower_cell_runs_beside_the_card(cuda):
                           if l.startswith("REC "))[4:])
     assert rec["status"] == "ok" and rec["n_chips"] == 256
     assert rec["memory"]["argument_bytes"] > 0
+
+
+# ----- the examples ----------------------------------------------------------
+
+#: the stencil's card-against-CPU limit, times max(1, max |CPU|): fp32,
+#: the same sums in the same order
+STENCIL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_runs_at_its_smoke_defaults_on_the_card(cuda, name):
+    """Each script's ``main`` at its defaults (the card; the two
+    multi-rank scripts on a one-process NCCL group they join and leave)."""
+    rglru_ops.reset_launch_counts()
+    ops.reset_launch_counts()
+    out = load_example(name).main([])
+    if name == "train_endpoint_categories":
+        assert len(set(out.values())) == 1
+    elif name == "stencil_endpoints":
+        assert out["messages_per_step"] == 2 and out["grid"].is_cuda
+    elif name in ("quickstart", "serve_batched"):
+        assert ops.LAUNCHES["ragged_decode"] > 0
+        assert ops.LAUNCHES["flash_attention"] > 0
+
+
+def test_example_serve_batched_card_tokens_equal_cpu(cuda):
+    """At fp32 the wave and the three presets serve the CPU's tokens."""
+    batched = load_example("serve_batched")
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    card, cpu = (batched.run(cfg, dev) for dev in ("cuda", "cpu"))
+    assert list(card) == ["wave", *batched.PRESETS]
+    for name in card:
+        assert card[name]["tokens"] == cpu[name]["tokens"]
+
+
+def test_example_stencil_card_equals_cpu(cuda):
+    import torch.distributed as dist
+    from repro_torch.launch.train import join_group
+    stencil = load_example("stencil_endpoints")
+    grids = {}
+    for dev in ("cuda", "cpu"):
+        join_group(dev)
+        try:
+            grids[dev] = stencil.run(dev)["grid"].cpu()
+        finally:
+            dist.destroy_process_group()
+    limit = STENCIL_TOL * max(1.0, grids["cpu"].abs().max().item())
+    assert (grids["cuda"] - grids["cpu"]).abs().max().item() <= limit

@@ -24,8 +24,29 @@ def _forbidden(name: str) -> bool:
     return top in FORBIDDEN
 
 
+#: the examples' counterparts, ``examples/<name>_torch.py``: each runs
+#: through ``repro_torch`` alone
+EXAMPLES = ("quickstart", "serve_batched", "serve_fleet", "serve_adaptive",
+            "train_endpoint_categories", "stencil_endpoints")
+
+
+def example_path(name: str) -> Path:
+    return ROOT / "examples" / f"{name}_torch.py"
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` loaded as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"{name}_torch",
+                                                  example_path(name))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + [example_path(name) for name in EXAMPLES])
 
 
 def test_no_forbidden_import_in_sources():
@@ -174,6 +195,41 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         launcher.main(["--smoke", "--requests", "1"])
     assert connect(cfg, device="cpu").engine.device.type == "cpu"
+
+
+@pytest.fixture(scope="module")
+def examples_without_a_card():
+    """Each example script run as users run it, without ``--device cpu``
+    and with CUDA hidden, all started together; -> {name: (returncode,
+    stdout, stderr)}."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = {f"{name}_torch": subprocess.Popen(
+        [sys.executable, str(example_path(name))], cwd=ROOT, env=env,
+        text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name in EXAMPLES}
+    out = {}
+    try:
+        for name, p in procs.items():
+            stdout, stderr = p.communicate(timeout=120)
+            out[name] = (p.returncode, stdout, stderr)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+@pytest.mark.parametrize("name", [f"{name}_torch" for name in EXAMPLES])
+def test_example_needs_a_card_unless_asked_for_the_cpu(
+        examples_without_a_card, name):
+    """Without CUDA and without ``--device cpu`` each example raises the
+    port's RuntimeError before it prints anything: no CPU fallback."""
+    rc, out, err = examples_without_a_card[name]
+    assert rc != 0
+    assert "RuntimeError: CUDA is not available" in err, err
+    assert out == ""
 
 
 def test_launcher_serves_on_the_cpu_when_asked(capsys):
