@@ -250,6 +250,21 @@ Phases (any failure exits non-zero, without the final result line):
    of smollm-360m at (8, 64) printed; every (kernel, dtype, shape)
    key the runs launched (``SHAPE_LAUNCHES`` of both ops modules) joins
    phase 16's per-key check.
+19. (run after 18 and before 16, whose per-key check holds its keys) the
+   reference's legacy serving surface at qwen2-0.5b's full width, bf16:
+   the bare launcher (``repro_torch.launch.serve.main([])``: 8 requests
+   of 16 tokens, 12 new, 4 slots, max_len 256) must serve through the
+   wave executor with no DeprecationWarning, every request its 12
+   tokens, flash launched layers x waves and ragged decode layers x
+   waves x 12; ``--category shared_dynamic --workers 4 --engine
+   continuous`` must warn exactly once and serve its 8 requests through
+   the fleet, both attention kernels launched; the legacy
+   ``ContinuousEngine(cfg, w, n_slots=4, max_len=256,
+   category=Category.STATIC)`` (one warning) must serve the launcher's
+   prompts at mixed lengths with the tokens of the engine built from
+   ``EndpointPlan.from_preset("static")``, every one.  Each run's wall
+   seconds and the bare run's tok/s printed; every (kernel, dtype,
+   shape) key the runs launched joins phase 16's per-key check.
 
 The last line is ``{"ok": true, "device": {...}}``.  The script imports
 torch, numpy and ``repro_torch`` (from ``src/``), nothing of JAX.
@@ -2988,6 +3003,14 @@ TRAIN_SMOKE_ARCHS = ("qwen2-0.5b", "recurrentgemma-2b",
 TRAIN_DIR = ROOT / "build" / "train"
 
 
+def _local_store():
+    """A one-process group's store, listening on a localhost port of its
+    own choosing (a probed free port could be taken before the store
+    binds it)."""
+    import torch.distributed as dist
+    return dist.TCPStore("localhost", 0, world_size=1, is_master=True)
+
+
 def _free_card() -> None:
     """Drop what earlier phases left (engines in reference cycles, exec
     groups and their graph pools, the allocator's cached blocks)."""
@@ -3188,7 +3211,6 @@ def ddp_qwen2(card: str) -> dict:
     steps of ``make_train_step`` (jit mode) bit for bit, and each step
     must issue as many collectives as its bucket plan has (bucket, dtype)
     buffers; then ``Int8Compressor`` for 3 steps with a finite loss."""
-    import socket
     import torch
     import torch.distributed as dist
     from repro_torch.comm.compression import Int8Compressor
@@ -3203,12 +3225,9 @@ def ddp_qwen2(card: str) -> dict:
     opt = AdamW(learning_rate=cosine_schedule(3e-4, 20, DDP_STEPS))
     data = SyntheticLMData(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                            global_batch=TRAIN_BATCH)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     _free_card()
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    dist.init_process_group("nccl", store=_local_store(), world_size=1,
+                            rank=0)
     torch.use_deterministic_algorithms(True)
 
     def run(step, ddp, comp=()):
@@ -3922,7 +3941,8 @@ def serve_encdec_embeds(card: str, earlier=None) -> dict:
     the fp32 chain, train), qwen2-vl-72b at full width cut to VL_LAYERS
     layers (contiguous and paged), the smoke configs card = CPU; then one
     case per (kernel, dtype, shape) key those runs and the ``earlier``
-    phase's (``_collect``'s dict: phase 18's examples) launched, each
+    phases' (``_collect``'s dict: phase 18's examples and phase 19's
+    legacy surface) launched, each
     checked against its plain version and timed beside SDPA, its
     ``launches`` the key's count.  -> the runs' numbers and the cases for
     phase 12's line."""
@@ -3961,11 +3981,10 @@ def serve_encdec_embeds(card: str, earlier=None) -> dict:
             missing.append(key)
         _free_card()
     n_bf16 = sum(k[1] == "bfloat16" for k in launched)
-    log(f"phases 16 and 18 launched {len(launched)} (kernel, dtype, shape) "
-        f"keys "
-        f"({n_bf16} bf16, {len(launched) - n_bf16} fp32); held against "
-        f"their plain versions: {len(cases)}; without a passing case: "
-        f"{missing}")
+    log(f"phases 16, 18 and 19 launched {len(launched)} (kernel, dtype, "
+        f"shape) keys ({n_bf16} bf16, {len(launched) - n_bf16} fp32); held "
+        f"against their plain versions: {len(cases)}; without a passing "
+        f"case: {missing}")
     if missing:
         raise AssertionError(f"keys launched without a passing case: "
                              f"{missing}")
@@ -4185,6 +4204,153 @@ def run_examples(card: str) -> dict:
         raise AssertionError("; ".join(bad))
     return dict(launched=launched, launches=launches, seconds=seconds,
                 full=full, step_ms=step_ms, quick_ms=quick_ms)
+
+
+# ----- phase 19 --------------------------------------------------------------
+
+#: the deprecated launch: the --category spelling of a diagonal fleet
+LEGACY_FLEET = ("--category", "shared_dynamic", "--workers", "4",
+                "--engine", "continuous")
+#: the legacy engine's keywords (the reference launcher's defaults), and
+#: the slot level of its category (STATIC)
+LEGACY_SLOTS, LEGACY_MAX_LEN = 4, 256
+
+
+def _launch(argv) -> tuple:
+    """``repro_torch.launch.serve.main(argv)`` on the card, its stdout
+    captured (then logged); -> (stdout, DeprecationWarnings raised)."""
+    import contextlib
+    import io
+    import warnings
+    from repro_torch.launch import serve as launcher
+    buf = io.StringIO()
+    with warnings.catch_warnings(record=True) as rec, \
+            contextlib.redirect_stdout(buf):
+        warnings.simplefilter("always")
+        launcher.main(list(argv))
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    return out, [str(w.message) for w in rec
+                 if issubclass(w.category, DeprecationWarning)]
+
+
+def _legacy_engines(card, bad, launched, launches) -> dict:
+    """The legacy ``ContinuousEngine(cfg, w, n_slots=4, max_len=256,
+    category=Category.STATIC)`` (one DeprecationWarning) against the
+    engine built from its new spelling, ``EndpointPlan.from_preset(
+    "static")``, on the same full-width weights (seed 0) and the
+    launcher's prompts at mixed lengths: equal tokens, every one."""
+    import argparse
+    import warnings
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.endpoints import Category
+    from repro_torch.core.plan import EndpointPlan
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import Model
+    from repro_torch.serve.engine import ContinuousEngine, Request
+    cfg = get_config("qwen2-0.5b")
+    params = Model(cfg, "cuda").init(torch.Generator().manual_seed(0))
+    prompts = make_prompts(cfg, argparse.Namespace(
+        seed=0, requests=8, prompt_len=16, mixed_lengths=True))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        legacy = ContinuousEngine(cfg, params, n_slots=LEGACY_SLOTS,
+                                  max_len=LEGACY_MAX_LEN,
+                                  category=Category.STATIC)
+    deps = [w for w in rec if issubclass(w.category, DeprecationWarning)]
+    planned = ContinuousEngine(cfg, params, EndpointPlan.from_preset(
+        "static", n_slots=LEGACY_SLOTS, max_len=LEGACY_MAX_LEN,
+        executor="continuous"), device="cuda")
+    outs, seconds = {}, {}
+    for label, eng in (("legacy", legacy), ("plan", planned)):
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=12))
+        reset_counts()
+        _sync()
+        t0 = time.perf_counter()
+        outs[label] = {r.rid: list(r.output) for r in eng.run()}
+        _sync()
+        seconds[label] = time.perf_counter() - t0
+        _collect(launched, f"legacy engine ({label})")
+        for name, n in read_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"ContinuousEngine {label}: pool level {eng.pool.level}, "
+            f"{seconds[label]:.2f} s, launches {read_counts()}; on {card}")
+    differ = [rid for rid in outs["plan"]
+              if outs["legacy"].get(rid) != outs["plan"][rid]]
+    log(f"legacy ContinuousEngine(category=STATIC) vs "
+        f"EndpointPlan.from_preset('static'): {len(deps)} "
+        f"DeprecationWarning, {len(outs['legacy'])} requests, "
+        f"{sum(map(len, outs['legacy'].values()))} tokens, requests that "
+        f"differ {differ}")
+    if len(deps) != 1:
+        bad.append(f"legacy engine: {len(deps)} DeprecationWarnings")
+    if differ or len(outs["legacy"]) != len(prompts) \
+            or any(len(t) != 12 for t in outs["legacy"].values()):
+        bad.append(f"legacy engine vs plan-built engine: requests {differ} "
+                   f"differ")
+    if legacy.plan.vector.slots != 3 or legacy.pool.level != 3:
+        bad.append(f"legacy engine's slot level {legacy.pool.level}")
+    return seconds
+
+
+def serve_legacy(card: str) -> dict:
+    """Phase 19 (after 18, before 16, whose per-key check takes its
+    keys): the reference's legacy serving surface at qwen2-0.5b's full
+    width in bf16.  The bare launcher (``main([])``: 8 requests of 16
+    tokens, 12 new, 4 slots, max_len 256) must serve through the wave
+    executor with no DeprecationWarning, every request its 12 tokens,
+    flash launched layers x waves and ragged decode layers x waves x 12;
+    the deprecated fleet launch (LEGACY_FLEET) must warn exactly once and
+    serve every request through the fleet, both attention kernels
+    launched; then ``_legacy_engines``.  Each run's counts start at 0
+    (the launcher resets them before its run) and are read after it.
+    -> {"launched": keys by ``_collect``, "launches": the runs' summed
+    counts, "seconds", "tok_s": the bare run's}."""
+    import re
+    from repro_torch.configs import get_config
+    launched, launches, seconds, bad = {}, {}, {}, []
+    layers = get_config("qwen2-0.5b").n_layers
+
+    def run(label, argv):
+        _free_card()
+        reset_counts()
+        t0 = time.perf_counter()
+        out, deps = _launch(argv)
+        seconds[label] = time.perf_counter() - t0
+        _collect(launched, label)
+        for name, n in read_counts().items():
+            launches[name] = launches.get(name, 0) + n
+        log(f"launch {label}: {seconds[label]:.2f} s wall (weights "
+            f"included), {len(deps)} DeprecationWarning, launches "
+            f"{read_counts()}; on {card}")
+        return out, deps, read_counts()
+
+    out, deps, counts = run("bare", [])
+    rate = re.search(r"served 8 requests, 96 tokens in [0-9.]+s "
+                     r"\(([0-9.]+) tok/s", out)
+    want = {"flash_attention": layers * 2, "ragged_decode": layers * 2 * 12}
+    if "executor=wave" not in out or rate is None or deps \
+            or any(counts[k] != n for k, n in want.items()):
+        bad.append(f"bare launch: wave {'executor=wave' in out}, "
+                   f"served {rate is not None}, {len(deps)} warnings, "
+                   f"launches {counts} (expected {want})")
+    out, deps, counts = run("--category fleet", LEGACY_FLEET)
+    if len(deps) != 1 or "executor=fleet" not in out \
+            or "8/8 requests" not in out or "preset=shared_dynamic" \
+            not in out or not counts["flash_attention"] \
+            or not counts["ragged_decode"]:
+        bad.append(f"--category fleet: {len(deps)} warnings, launches "
+                   f"{counts}")
+    _free_card()
+    engines = _legacy_engines(card, bad, launched, launches)
+    seconds.update({f"engine {k}": v for k, v in engines.items()})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return dict(launched=launched, launches=launches, seconds=seconds,
+                tok_s=float(rate.group(1)))
 
 
 # ----- phase 17 --------------------------------------------------------------
@@ -4407,7 +4573,6 @@ def serve_cells(card: str) -> dict:
     ``decode_32k`` and recurrentgemma-2b ``long_500k``; then a case for
     each (kernel, dtype, shape) key they launched, held against its plain
     version (phase 16's mechanism).  -> numbers and cases."""
-    import socket
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
@@ -4418,12 +4583,9 @@ def serve_cells(card: str) -> dict:
     log(f"the card's total_memory {props.total_memory} B; the roofline's "
         f"HBM_BYTES {HBM_BYTES} B: equal {props.total_memory == HBM_BYTES}")
     bad, launched = [], {}
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0)
+    dist.init_process_group("nccl", store=_local_store(), world_size=1,
+                            rank=0)
     try:
         mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
         decode = _decode_32k(mesh, card, bad, launched)
@@ -4530,10 +4692,20 @@ def main() -> int:
           train_smoke_card_vs_cpu, card)
     examples = phase("the six examples through the port (phase 18)",
                      run_examples, card)
+    legacy = phase("the legacy serving surface at full width: the bare "
+                   "launcher, --category, ContinuousEngine(category=) "
+                   "(phase 19)", serve_legacy, card)
+    earlier = {}
+    for done in (examples, legacy):
+        for key, (n, runs, full) in (done or {}).get("launched",
+                                                     {}).items():
+            entry = earlier.setdefault(key, [0, set(), True])
+            entry[0] += n
+            entry[1] |= runs
+            entry[2] = entry[2] and full
     encdec = phase("encoder-decoder and embeddings input at full width: "
                    "seamless-m4t-large-v2, qwen2-vl-72b (8 layers)",
-                   serve_encdec_embeds, card,
-                   examples["launched"] if examples else None)
+                   serve_encdec_embeds, card, earlier)
     kernels = rg_kernel = flash = None
     if served is not None and long is not None:
         runs, prompts = served[:2]
@@ -4558,12 +4730,13 @@ def main() -> int:
             or surface is None or fleet is None or planner is None \
             or family is None or scan_grad is None or trained is None \
             or ddp is None or rg_trained is None or encdec is None \
-            or cells is None or examples is None:
+            or cells is None or examples is None or legacy is None:
         log(f"FAILED phases: {failed}")
         return 1
-    # the kernels at phase 14's shapes and at every key phases 16 and 18
-    # launched join their entries' cases; each entry also carries its
-    # launches on phase 18's path (the examples)
+    # the kernels at phase 14's shapes and at every key phases 16, 18 and
+    # 19 launched join their entries' cases; each entry also carries its
+    # launches on phase 18's path (the examples) and phase 19's (the
+    # legacy surface)
     for entry in kernels:
         entry["cases"] += [family["decode"][m][entry["name"]]
                            for m in family["decode"]]
@@ -4574,6 +4747,7 @@ def main() -> int:
                            if name == entry["name"]]
         entry["examples_launches"] = examples["launches"].get(
             entry["name"], 0)
+        entry["legacy_launches"] = legacy["launches"].get(entry["name"], 0)
     # the scan's backward call: its launches on the training path
     rg_kernel["backward"] = dict(
         scan_grad, launches=rg_trained["backward_launches"])
@@ -4639,6 +4813,11 @@ def main() -> int:
         f"{_rates(examples['full'])}; {examples['step_ms']:.2f} ms a K = 1 "
         f"decode step; smollm-360m "
         f"{examples['quick_ms']:.1f} ms a train step; on {card}")
+    log("phase 19, wall s (weights included): " + "; ".join(
+        f"{name} {sec:.2f}" for name, sec in legacy["seconds"].items())
+        + f"; the bare launcher (wave, 4 slots, 8 x 16 tokens, 12 new) "
+        f"{legacy['tok_s']:.1f} tok/s; launches {legacy['launches']}; on "
+        f"{card}")
     dec, lng = cells["decode_32k"], cells["long_500k"]
     log(f"phase 17: dry run {cells['dryrun']['ok']} ok, "
         f"{cells['dryrun']['skipped']} skipped in "

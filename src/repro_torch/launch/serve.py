@@ -12,8 +12,8 @@ fleet of engines behind the fabric router.
   # recurrentgemma (RG-LRU + local attention): exact-length admission and
   # a rolling cache, whatever the buckets and pages flags say
   python -m repro_torch.launch.serve --arch recurrentgemma-2b \
-      --slots 8 --max-len 4096 --decode-horizon 8 --requests 8 \
-      --prompt-len 1024 --mixed-lengths --max-new 64
+      --engine continuous --slots 8 --max-len 4096 --decode-horizon 8 \
+      --requests 8 --prompt-len 1024 --mixed-lengths --max-new 64
 
   # the MoE family (bucketed admission, paged caches) and xLSTM
   # (mLSTM / sLSTM cells: exact-length admission, no pages)
@@ -21,14 +21,14 @@ fleet of engines behind the fabric router.
       --slots 8 --max-len 1024 --decode-horizon 8 --pages 4 \
       --requests 16 --prompt-len 256 --mixed-lengths --max-new 64
   python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke \
-      --device cpu --max-len 64 --requests 8 --prompt-len 20 \
-      --decode-horizon 4 --mixed-lengths
+      --device cpu --engine continuous --max-len 64 --requests 8 \
+      --prompt-len 20 --decode-horizon 4 --mixed-lengths
 
-  # the legacy wave engine; a Chrome/Perfetto trace and the metrics
-  # registry of a continuous run
-  python -m repro_torch.launch.serve --arch qwen2-0.5b --engine wave \
-      --slots 8 --max-len 1024 --requests 16 --prompt-len 128
+  # the wave engine (the single engine's default); a Chrome/Perfetto
+  # trace and the metrics registry of a continuous run
   python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --slots 8 --max-len 1024 --requests 16 --prompt-len 128
+  python -m repro_torch.launch.serve --arch qwen2-0.5b --engine continuous \
       --decode-horizon 8 --trace-out trace.json --metrics-out metrics.json
 
   # a fleet of 4 engines behind the router, in virtual time: bursty
@@ -47,11 +47,17 @@ fleet of engines behind the fabric router.
       --max-len 1024 --decode-horizon 8 --requests 32 --prompt-len 256
 
 Runs on the card unless ``--device cpu`` is given, and prints tokens per
-second and the kernels' launch counts.  A single engine defaults to the
-continuous executor; ``--workers > 1`` serves through the fleet.
-``--hint k=v`` (repeatable) declares intent that the planner resolves
-(``core.plan.resolve``); it excludes ``--plan``, ``--category`` and
-``--engine``, as in the reference launcher.
+second and the kernels' launch counts.  The flags resolve to the plan the
+reference launcher builds, and it refuses what that one refuses.  A
+single engine defaults to the wave executor, as there: ``--engine
+continuous``, ``--plan``, ``--hint``, ``--adaptive`` or a page flag serve
+through the continuous engine, and the wave engine refuses
+``--decode-horizon`` and a bucket list.  ``--workers > 1`` serves
+through the fleet; bare, its workers share one exec group.  ``--hint
+k=v`` (repeatable) declares intent that the planner resolves
+(``core.plan.resolve``); it excludes ``--plan``, and both exclude
+``--category`` and ``--engine``.  ``--category`` is the deprecated
+spelling of a diagonal preset and warns once.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -155,84 +162,108 @@ def parse_hints(items) -> Hints:
     return Hints(**fields)
 
 
+def _implicit_wave(args) -> bool:
+    """The historical single-engine default: one engine, no engine or
+    the wave engine asked for, and none of --adaptive or the page flags
+    (a wave engine cannot re-plan live or page its cache, so those keep
+    the continuous executor)."""
+    return (args.workers == 1 and (args.engine or "wave") == "wave"
+            and not args.adaptive and args.pages <= 1
+            and not args.page_size)
+
+
 def build_plan(args, ap) -> EndpointPlan:
-    fleet = args.workers > 1
-    if args.plan and args.hint:
-        ap.error("--plan and --hint are exclusive: a plan IS resolved "
-                 "hints")
-    if args.hint and args.category:
-        ap.error("--category conflicts with --plan/--hint; the preset "
-                 "spelling is --plan " + args.category)
-    if args.hint and args.engine is not None:
-        ap.error(f"--engine {args.engine} conflicts with --plan/--hint "
-                 f"(a plan resolves its own executor)")
-    if fleet and args.engine == "wave":
-        ap.error("--workers > 1 serves through continuous-engine workers; "
-                 "--engine wave only applies to a single engine")
-    if args.engine == "wave" and args.adaptive:
-        ap.error("--engine wave cannot re-plan live; drop --adaptive or "
-                 "use the continuous engine")
-    if args.plan is not None and args.category is not None:
-        ap.error("--category conflicts with --plan; the preset spelling "
-                 "is --plan " + args.category)
-    if args.engine == "wave":
-        if args.decode_horizon != 1:
-            ap.error("--decode-horizon applies to the continuous engine")
-        if parse_buckets(args.prefill_buckets) not in ("auto", "pow2",
-                                                       None):
-            ap.error("--prefill-buckets applies to the continuous engine")
-        if args.pages > 1 or args.page_size or args.page_budget is not None:
-            ap.error("the wave engine has no paged cache; drop the page "
-                     "flags or use the continuous engine")
+    """Resolve the flag surface, new (--plan / --hint) or legacy
+    (--engine / --category), into one ``EndpointPlan``: the reference
+    launcher's rules, field by field, and its refusals, word for word."""
+    adaptive = args.adaptive
     knobs = dict(n_workers=args.workers, n_slots=args.slots,
                  max_len=args.max_len, decode_horizon=args.decode_horizon,
                  prefill_buckets=parse_buckets(args.prefill_buckets),
-                 executor="auto" if fleet else args.engine or "continuous",
-                 adaptive=args.adaptive,
+                 use_ragged_kernel=args.ragged_kernel,
+                 adaptive=adaptive,
                  adapt_window_ns=args.adapt_window * 1e3)
-    if args.placement is not None:
-        knobs["placement"] = args.placement
     if args.roles:
         knobs["roles"] = args.roles
-    if args.page_size:
-        knobs["page_size"] = args.page_size
+    pages = args.pages or 1
+    page_size = args.page_size
+    if pages < 1 or pages > 4:
+        ap.error("--pages must be a sharing level in 1..4")
+    if page_size:
+        knobs["page_size"] = page_size
     if args.page_budget is not None:
         knobs["page_budget"] = args.page_budget
-    if not 1 <= args.pages <= 4:
-        ap.error("--pages must be a sharing level in 1..4")
-    preset = args.plan if args.plan is not None else args.category
-    try:
-        if args.hint:
-            # a plan resolved from hints picks its own executor
-            plan = EndpointPlan.from_hints(parse_hints(args.hint),
-                                           **dict(knobs, executor="auto"))
-        elif preset is None and fleet:
-            # a bare fleet keeps the reference launcher's default:
-            # dedicated slots and queues, one exec group
-            plan = EndpointPlan(
-                vector=SharingVector(slots=1, channels=1, execs=4),
-                **knobs)
-        elif preset is None:
-            plan = EndpointPlan.from_category(Category.MPI_EVERYWHERE,
-                                              **knobs)
-        elif preset in (c.value for c in Category):
-            plan = EndpointPlan.from_preset(preset, **knobs)
-        else:
-            plan = EndpointPlan(vector=parse_vector(args.plan), **knobs)
-    except (TypeError, ValueError) as e:
-        if args.hint:
+
+    def done(plan: EndpointPlan) -> EndpointPlan:
+        """Land --pages on whichever vector the flags resolved (presets
+        and the legacy flags predate the pages axis)."""
+        if pages > 1:
+            if plan.vector.pages not in (1, pages):
+                ap.error(f"--pages {pages} conflicts with the plan's "
+                         f"pages level {plan.vector.pages}")
+            plan = dataclasses.replace(
+                plan, vector=dataclasses.replace(plan.vector,
+                                                 pages=pages))
+        return plan
+    if args.placement is not None:
+        # only an explicit flag pins placement: hints may resolve their
+        # own (session_ordering -> session_affinity)
+        knobs["placement"] = args.placement
+    if args.plan and args.hint:
+        ap.error("--plan and --hint are exclusive: a plan IS resolved "
+                 "hints")
+    if (args.plan or args.hint) and args.category:
+        ap.error("--category conflicts with --plan/--hint; the preset "
+                 "spelling is --plan " + args.category)
+    if (args.plan or args.hint) and args.engine is not None:
+        ap.error(f"--engine {args.engine} conflicts with --plan/--hint "
+                 f"(a plan resolves its own executor)")
+    if args.engine == "wave" and adaptive:
+        # the implicit wave default turns continuous under --adaptive,
+        # but an explicit engine choice is never dropped silently
+        ap.error("--engine wave cannot re-plan live; drop --adaptive or "
+                 "use the continuous engine")
+    if args.plan:
+        if args.plan in (c.value for c in Category):
+            return done(EndpointPlan.from_preset(args.plan, **knobs))
+        try:
+            return done(EndpointPlan(vector=parse_vector(args.plan),
+                                     **knobs))
+        except (TypeError, ValueError) as e:
+            ap.error(f"--plan must be a preset "
+                     f"({', '.join(c.value for c in Category)}) or "
+                     f"'slots=..,channels=..[,execs=..,pages=..]': {e}")
+    if args.hint:
+        try:
+            return done(EndpointPlan.from_hints(parse_hints(args.hint),
+                                                **knobs))
+        except ValueError as e:
             ap.error(str(e))
-        ap.error(f"--plan must be a preset "
-                 f"({', '.join(c.value for c in Category)}) or "
-                 f"'slots=..,channels=..[,execs=..,pages=..]': {e}")
-    if args.pages > 1:
-        if plan.vector.pages not in (1, args.pages):
-            ap.error(f"--pages {args.pages} conflicts with the plan's "
-                     f"pages level {plan.vector.pages}")
-        plan = dataclasses.replace(
-            plan, vector=dataclasses.replace(plan.vector,
-                                             pages=args.pages))
-    return plan
+    # ----- the legacy flags ------------------------------------------------
+    category = Category.MPI_EVERYWHERE
+    if args.category is not None:
+        warnings.warn(
+            "--category is deprecated and now means the DIAGONAL preset: "
+            "the level applies to slots, channels, AND executables (the "
+            "pre-plan fleet shared only the dispatch queues — that "
+            "spelling is --plan slots=1,channels=N).  Use --plan "
+            "<preset|slots=..,channels=..> or --hint k=v",
+            DeprecationWarning, stacklevel=2)
+        category = Category(args.category)
+    executor = "auto"
+    if _implicit_wave(args):
+        executor = "wave"
+        knobs.update(decode_horizon=1, prefill_buckets="auto")
+    if args.category is None and args.workers > 1:
+        # the bare legacy fleet keeps the pre-plan sharing structure:
+        # dedicated slots and queues, one exec group (the level-1
+        # diagonal would give every worker its own); only an explicit
+        # --category opts into the diagonal, and warns above
+        return done(EndpointPlan(
+            vector=SharingVector(slots=1, channels=1, execs=4),
+            executor=executor, **knobs))
+    return done(EndpointPlan.from_category(category, executor=executor,
+                                           **knobs))
 
 
 def make_prompts(cfg, args):
@@ -263,13 +294,13 @@ def main(argv=None):
                          "compile_isolation=, memory_budget=")
     ap.add_argument("--engine", default=None,
                     choices=("wave", "continuous"),
-                    help="single-engine scheduler (default continuous; "
-                         "wave = static waves of equal prompt length); a "
+                    help="[legacy] single-engine scheduler (default "
+                         "wave: static waves of equal prompt length); a "
                          "fleet (--workers > 1) is always continuous")
     ap.add_argument("--category", default=None,
                     choices=[c.value for c in Category],
-                    help="the diagonal preset of a category (the "
-                         "reference launcher's spelling of --plan)")
+                    help="[deprecated] diagonal sharing preset; use "
+                         "--plan")
     ap.add_argument("--workers", type=int, default=1,
                     help="> 1 serves through the fabric router with this "
                          "many continuous-engine workers")
@@ -281,9 +312,13 @@ def main(argv=None):
                     help="fleet traffic shape (arrival times, sessions)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--ragged-kernel", action="store_true",
+                    help="plan.use_ragged_kernel: on the CPU, decode "
+                         "attention through the kernels' plain versions "
+                         "(on the card it always runs the CUDA kernels)")
     ap.add_argument("--decode-horizon", type=int, default=1,
-                    help="fused decode steps per host sync (1 = per-step "
-                         "host loop, the oracle)")
+                    help="fused decode steps per host sync (continuous "
+                         "engine; 1 = per-step host loop, the oracle)")
     ap.add_argument("--prefill-buckets", default="auto",
                     help="'auto'/'pow2', 'none', or a comma list")
     ap.add_argument("--pages", type=int, default=1,
@@ -350,6 +385,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     fleet = args.workers > 1
+    if fleet and args.engine == "wave":
+        ap.error("--workers > 1 serves through continuous-engine workers; "
+                 "--engine wave only applies to a single engine")
+    if _implicit_wave(args) and not (args.plan or args.hint
+                                     or args.page_budget is not None):
+        # the wave engine, asked for or implicit: its knobs are fixed
+        if args.decode_horizon != 1:
+            ap.error("--decode-horizon applies to the continuous engine")
+        if parse_buckets(args.prefill_buckets) not in ("auto", "pow2",
+                                                       None):
+            # 'auto' (the default) and 'none' are both no-ops for the
+            # wave engine; only an explicit bucket list is a misuse
+            ap.error("--prefill-buckets applies to the continuous engine")
     pmax = args.prompt_len * (2 if args.mixed_lengths else 1)
     if fleet and pmax + args.max_new >= args.max_len:
         ap.error(f"longest prompt ({pmax}) + max-new ({args.max_new}) "
@@ -378,8 +426,8 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     obs = enabled_obs() if (args.trace_out or args.metrics_out) else None
     client = connect(cfg, plan, seed=args.seed, device=args.device,
-                     use_ragged_kernel=True, obs=obs, faults=args.faults,
-                     recovery=recovery, migrations=migrations)
+                     obs=obs, faults=args.faults, recovery=recovery,
+                     migrations=migrations)
     if fleet:
         for a in make_trace(args):
             rng = np.random.default_rng(a.rid)

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 
 import torch
 import torch.distributed as dist
@@ -27,12 +26,6 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.endpoints import Category
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.train.loop import TrainConfig, Trainer
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def join_group(device: str) -> str:
@@ -45,9 +38,10 @@ def join_group(device: str) -> str:
             torch.cuda.set_device(device)
         dist.init_process_group(backend, init_method="env://")
     else:
-        dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{_free_port()}",
-            world_size=1, rank=0)
+        # the store listens on a localhost port of its own choosing, so
+        # no probed port is freed for another socket to take first
+        store = dist.TCPStore("localhost", 0, world_size=1, is_master=True)
+        dist.init_process_group(backend, store=store, world_size=1, rank=0)
     return device
 
 

@@ -75,13 +75,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.plan import Buckets, EndpointPlan
+from repro_torch.core.plan import Buckets, EndpointPlan, SharingVector
 from repro_torch.kernels.flash_attention import ops as attention_ops
 from repro_torch.kernels.rglru import ops as rglru_ops
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.serve.pages import PagePool, sentinel
-from repro_torch.serve.slots import SlotPool
+from repro_torch.serve.slots import SlotPool, _coerce_level
 
 
 @dataclasses.dataclass
@@ -353,10 +353,13 @@ def clear_exec_groups() -> None:
 
 def shared_exec_group(cfg: ArchConfig, use_ragged_kernel: bool,
                       group: int, device: torch.device) -> ExecGroup:
-    """The process's ``ExecGroup`` for this key, made at first use."""
+    """The process's ``ExecGroup`` for this key, made at first use.  On
+    the card decode attention runs its CUDA kernel whatever
+    ``use_ragged_kernel`` says, so the flag keys only CPU groups."""
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (cfg, bool(use_ragged_kernel), int(group), str(device))
+    ragged = bool(use_ragged_kernel) and device.type == "cpu"
+    key = (cfg, ragged, int(group), str(device))
     if key not in _EXEC_GROUPS:
         _EXEC_GROUPS[key] = ExecGroup(key)
     return _EXEC_GROUPS[key]
@@ -654,23 +657,32 @@ class ServeEngine:
     lookahead token.  On the card the prefill runs the flash kernel and
     each step the ragged decode kernel (``cur`` expanded per row); a
     rolling layer keeps plain decode attention.  No graph: the reference
-    jits this step per shape but fuses no horizon here."""
+    jits this step per shape but fuses no horizon here.
 
-    def __init__(self, cfg: ArchConfig, params, plan: EndpointPlan,
-                 device=None):
+    ``plan`` rules ``n_slots`` and ``max_len``; without one the
+    reference's keywords build its wave plan (slot level 4)."""
+
+    def __init__(self, cfg: ArchConfig, params,
+                 plan: Optional[EndpointPlan] = None, device=None,
+                 exec_group: int = 0, *, n_slots: int = 4,
+                 max_len: int = 512):
         if cfg.input_mode != "tokens" or cfg.is_encdec:
             raise ValueError("the wave engine serves decoder-only token "
                              "models")
+        if plan is not None:
+            n_slots, max_len = plan.n_slots, plan.max_len
         self.cfg = cfg
         self.model = Model(cfg, device)
         self.device = self.model.device
         self.params = self.model.prepare_params(params)
-        self.plan = plan
-        self.n_slots = plan.n_slots
-        self.max_len = plan.max_len
-        # the reference's wave engine runs exec group 0's jitted prefill
-        # and decode, without the ragged kernel
-        self.group = shared_exec_group(cfg, False, 0, self.device)
+        self.plan = plan or EndpointPlan(
+            vector=SharingVector(slots=4), n_slots=n_slots,
+            max_len=max_len, executor="wave")
+        self.n_slots = n_slots
+        self.max_len = max_len
+        # the reference's wave engine runs its exec group's jitted
+        # prefill and decode, without the ragged kernel
+        self.group = shared_exec_group(cfg, False, exec_group, self.device)
         self._params_sig = signature(self.params)
         self.queue: deque = deque()
         self.done: List[Request] = []
@@ -752,23 +764,53 @@ class ContinuousEngine:
     module docstring), configured wholly by its ``EndpointPlan``: slots,
     max_len, horizon, buckets, the slot and page sharing levels.  Outputs
     are identical across every (decode_horizon, prefill_buckets) setting
-    on eligible models."""
+    on eligible models.
 
-    def __init__(self, cfg: ArchConfig, params, plan: EndpointPlan,
-                 device=None, exec_group: int = 0):
+    Without a plan the reference's keywords configure the engine and
+    build its plan; with one, the plan rules every knob it carries, and
+    only ``slot_level`` (or ``pool``) overrides its slot level.
+    ``category=`` and a ``Category`` passed as ``slot_level`` are the
+    deprecated spellings of the level: each warns once."""
+
+    def __init__(self, cfg: ArchConfig, params,
+                 plan: Optional[EndpointPlan] = None, device=None,
+                 exec_group: int = 0, *, n_slots: int = 4,
+                 max_len: int = 512, category=None, slot_level=None,
+                 pool: Optional[SlotPool] = None,
+                 use_ragged_kernel: bool = False, decode_horizon: int = 1,
+                 prefill_buckets: Buckets = "auto"):
         if cfg.input_mode != "tokens" or cfg.is_encdec:
             raise ValueError("the continuous engine serves decoder-only "
                              "token models")
-        n_slots, max_len = plan.n_slots, plan.max_len
+        if category is not None:
+            slot_level = _coerce_level(None, category, "ContinuousEngine")
+        if plan is not None:
+            n_slots, max_len = plan.n_slots, plan.max_len
+            decode_horizon = plan.decode_horizon
+            prefill_buckets = plan.prefill_buckets
+            use_ragged_kernel = plan.use_ragged_kernel
+            slot_level = plan.vector.slots if slot_level is None \
+                else slot_level
+        if decode_horizon < 1:
+            raise ValueError(f"decode_horizon must be >= 1, "
+                             f"got {decode_horizon}")
         self.cfg = cfg
         self.model = Model(cfg, device)
         self.device = self.model.device
         self.params = self.model.prepare_params(params)
         self.n_slots = n_slots
         self.max_len = max_len
-        self.pool = SlotPool(plan.vector.slots, n_slots)
-        self.plan = plan
-        self.decode_horizon = plan.decode_horizon
+        self.pool = pool or SlotPool(
+            1 if slot_level is None else slot_level, n_slots)
+        if self.pool.n_slots != n_slots:
+            raise ValueError(f"the pool holds {self.pool.n_slots} slots, "
+                             f"the engine {n_slots}")
+        plan = self.plan = plan or EndpointPlan(
+            vector=SharingVector(slots=self.pool.level), n_slots=n_slots,
+            max_len=max_len, decode_horizon=decode_horizon,
+            prefill_buckets=prefill_buckets,
+            use_ragged_kernel=use_ragged_kernel, executor="continuous")
+        self.decode_horizon = decode_horizon
         self.queue: deque = deque()
         self.done: List[Request] = []
         self.latency: Dict[int, float] = {}      # rid -> s from run() start

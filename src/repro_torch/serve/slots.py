@@ -24,8 +24,7 @@ admission only: cache MEMORY shares on its own ``pages`` axis through
 ``serve.pages.PagePool``, so a slot that is admissible here may still
 defer on page budget — the memory analogue of a drained group.
 
-This is the port's copy of ``repro.serve.slots``.  ``endpoint_usage``
-(the mlx5 resource model behind it) comes with a later slice.
+This is the port's copy of ``repro.serve.slots``.
 """
 
 from __future__ import annotations
@@ -35,8 +34,9 @@ import functools
 import warnings
 from typing import List, Optional, Sequence
 
-from repro_torch.core.endpoints import (Category, category_for_level,
-                                        level_group_size, sharing_group_size)
+from repro_torch.core.endpoints import (Category, EndpointModel,
+                                        category_for_level, level_group_size,
+                                        sharing_group_size)
 
 
 def group_size_for(category: Category, n_slots: int) -> int:
@@ -154,3 +154,10 @@ class SlotPool:
                 if queue_len is not None and len(out) >= queue_len:
                     return out[:queue_len]
         return out
+
+    def endpoint_usage(self) -> dict:
+        """Relative hardware footprint of the matching endpoint model
+        (Table 1 numbers) — reported next to throughput so the bench shows
+        both sides of the paper's tradeoff."""
+        return EndpointModel.build(
+            self.category, self.n_slots).relative_usage()

@@ -60,8 +60,10 @@ def test_launcher_serves_a_fleet_and_traces_it(name, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,words", [
-    (["--workers", "1", "--faults", "crash@1ms:w0"], "need a fleet"),
-    (["--workers", "1", "--roles", "1P+1D"], "need a fleet"),
+    (["--workers", "1", "--engine", "continuous", "--faults",
+      "crash@1ms:w0"], "need a fleet"),
+    (["--workers", "1", "--engine", "continuous", "--roles", "1P+1D"],
+     "need a fleet"),
     (["--workers", "4", "--engine", "wave"], "continuous-engine workers"),
     (["--engine", "wave", "--adaptive"], "cannot re-plan live"),
     (["--workers", "4", "--prompt-len", "60"], "must fit max-len"),

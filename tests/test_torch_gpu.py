@@ -1764,3 +1764,52 @@ def test_example_stencil_card_equals_cpu(cuda):
             dist.destroy_process_group()
     limit = STENCIL_TOL * max(1.0, grids["cpu"].abs().max().item())
     assert (grids["cuda"] - grids["cpu"]).abs().max().item() <= limit
+
+
+def test_legacy_continuous_engine_on_the_card_serves_the_plan_tokens(cuda):
+    """``ContinuousEngine(cfg, w, n_slots=4, max_len=64,
+    category=Category.STATIC)`` on the card (its default device) warns
+    once and serves, at fp32, the tokens of the engine built from
+    ``EndpointPlan.from_preset("static")`` and of the legacy engine on
+    the CPU."""
+    from repro_torch.core.endpoints import Category
+    from repro_torch.core.plan import EndpointPlan
+    from repro_torch.serve.engine import ContinuousEngine, Request
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"),
+                              compute_dtype="float32")
+    params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in (8, 16, 32, 16, 8, 16)]
+    kw = dict(n_slots=4, max_len=64)
+    with pytest.deprecated_call():
+        legacy = ContinuousEngine(cfg, params, category=Category.STATIC,
+                                  **kw)
+    with pytest.deprecated_call():
+        on_cpu = ContinuousEngine(cfg, params, category=Category.STATIC,
+                                  device="cpu", **kw)
+    planned = ContinuousEngine(cfg, params, EndpointPlan.from_preset(
+        "static", executor="continuous", **kw), device=cuda)
+    assert legacy.device.type == "cuda"
+    outs = []
+    ops.reset_launch_counts()
+    for eng in (legacy, planned, on_cpu):
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=6))
+        outs.append({r.rid: list(r.output) for r in eng.run()})
+    assert outs[0] == outs[1] == outs[2]
+    assert ops.LAUNCHES["flash_attention"] > 0
+    assert ops.LAUNCHES["ragged_decode"] > 0
+
+
+def test_bare_launcher_serves_through_the_wave_kernels(cuda, capsys):
+    """The launcher with no engine flag serves the smoke config through
+    the wave executor, prefill on the flash kernel and every decode step
+    on the ragged decode kernel."""
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--smoke"])
+    out = capsys.readouterr().out
+    assert "executor=wave" in out
+    assert "served 8 requests, 96 tokens" in out
+    assert ops.LAUNCHES["flash_attention"] > 0
+    assert ops.LAUNCHES["ragged_decode"] > 0
