@@ -1,0 +1,4 @@
+"""Share of the window's host time spent inside ``admit_waiting`` (synced),
+reason-batch, in %."""
+
+from perfbench.metrics_common import admit_share as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""Device idle share of the traced window (reason-batch): 1 - the union of the
+device operations' intervals over the window, in %."""
+
+from perfbench.metrics_common import idle_share as read  # noqa: F401
